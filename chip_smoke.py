@@ -8,12 +8,18 @@ Phases, each fatal on failure:
 1. the card's name and power limit (``nvidia-smi``); exit non-zero when
    torch sees no CUDA device;
 2. build every CUDA kernel of the port from the sources in the checkout;
-3. engine phase: ``lubm_like(--scale)`` loaded, inferred and queried by
-   the ``infer1`` and ``query1`` presets on the ``torch`` backend
-   (``eval_mode="full"``), every kernel launched on that path, and the
-   decoded-fact checksum and every query's row set equal to the port's
-   ``numpy`` backend on the same facts; then one more ``infer1`` run
-   under ``torch.profiler`` for the device busy time;
+3. engine phase: ``lubm_like(--scale)`` loaded, inferred and queried on
+   the ``torch`` backend (``eval_mode="full"``) five times: ``infer1``
+   and ``query1`` with raw resident columns (``compress=False``), the
+   same two with the reference's default compressed tier
+   (``compress=True``), and ``query1`` compressed with
+   ``sort_mode="sketch"`` (the device sketch); each run's decoded-fact
+   checksum, ``facts_inferred`` and every query's row set equal to the
+   port's ``numpy`` backend on the same facts, and each compressed run's
+   coded resident bytes below its raw ones.  ``Ops.unique_mask`` once at
+   full width against ``NumpyOps.unique_mask``.  Every kernel launched
+   on that path; then one more raw and one more compressed ``infer1``
+   run under ``torch.profiler`` for the device busy time;
 4. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shapes the engine phase
    gave them), bit-compared with its plain PyTorch version, timed with
@@ -59,13 +65,17 @@ def card_line() -> str:
 
 def time_ms(torch, fn, reps: int) -> float:
     """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
-    after a warm-up, with the L2 cache flushed before each run."""
+    after a warm-up, with the L2 cache flushed before each run.  A spin
+    kernel (~0.5 ms) keeps the card busy while the host enqueues the
+    events and ``fn``'s launches, so a short kernel's time is its device
+    time, not the wrapper's host overhead."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -104,6 +114,8 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
     from repro_torch.kernels.sortmerge.sortmerge import (
         bitonic_sort, bitonic_sort_kv, bitonic_sort_kv_plain,
         bitonic_sort_plain, merge_ranks, merge_ranks_plain)
+    from repro_torch.kernels.uniquefilter.uniquefilter import (
+        unique_mask_sorted, unique_mask_sorted_plain)
 
     rng = np.random.RandomState(seed)
     dev = "cuda"
@@ -199,6 +211,27 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
                           cap * int(np.ceil(np.log2(dcap)))
                           + dcap * int(np.ceil(np.log2(cap))))}
 
+    # unique_mask_sorted: 2^21 sorted int64 keys with many ties (about
+    # eight rows per distinct value), the width of a resident column
+    n = 1 << 21
+    x = torch.tensor(np.sort(rng.randint(0, n // 8, n)).astype(np.int64),
+                     device=dev)
+    got = unique_mask_sorted(x)
+    want = unique_mask_sorted_plain(x)
+    torch.cuda.synchronize()
+    out["unique_mask_sorted"] = {
+        "shape": [n], "dtype": "int64",
+        "distinct": int(got.sum()),
+        "max_abs_err": max_abs_err(torch, [(got, want)]),
+        "kernel_ms": time_ms(torch, lambda: unique_mask_sorted(x), reps),
+        "plain_ms": time_ms(torch, lambda: unique_mask_sorted_plain(x),
+                            reps),
+        "library_ms": time_ms(torch, lambda: torch.ne(x[1:], x[:-1]), reps),
+        "library_call": "torch.ne(x[1:], x[:-1])",
+        # bytes: the keys read once, the bool mask written once;
+        # operations: one compare per element
+        "bound": bound_ms(9 * n, n)}
+
     # the launches above compare and time the kernels; they are not the
     # main path's, so they are dropped from the counts
     kernels.reset_counts()
@@ -235,6 +268,27 @@ def merge_shapes(torch_ops):
     return seen, undo
 
 
+# (preset, config overrides) of the engine phase's runs, in order: the two
+# raw presets of the first slice, the reference's default compressed
+# tier under both presets, and the device sketch planner
+RUNS = [
+    ("infer1", {"compress": False}),
+    ("query1", {"compress": False}),
+    ("infer1", {"compress": True}),
+    ("query1", {"compress": True}),
+    ("query1", {"compress": True, "sort_mode": "sketch"}),
+]
+
+
+def engine_config(preset: str, overrides: dict):
+    from repro_torch.core import EngineConfig
+    cfg = getattr(EngineConfig, preset)(backend="torch")
+    cfg.eval_mode = "full"
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
 def engine_phase(torch, scale: int, seed: int):
     from repro_torch import kernels
     from repro_torch.backend import torch_ops
@@ -251,7 +305,7 @@ def engine_phase(torch, scale: int, seed: int):
 
     # oracle: the port's numpy backend on the same facts.  Results do not
     # depend on the configuration (the paper's invariant, held by the CPU
-    # tests over the whole grid), so one AI-indexed run serves both presets
+    # tests over the whole grid), so one AI-indexed run serves every run
     t0 = time.perf_counter()
     cfg = EngineConfig.query1(backend="numpy")
     cfg.eval_mode = "full"
@@ -269,13 +323,12 @@ def engine_phase(torch, scale: int, seed: int):
 
     launches = {name: 0 for name in kernels.LAUNCHES}
     shapes, undo = merge_shapes(torch_ops)
-    for preset in ("infer1", "query1"):
-        cfg = getattr(EngineConfig, preset)(backend="torch")
-        cfg.eval_mode = "full"
-        e = HiperfactEngine(cfg)
+    for preset, overrides in RUNS:
+        e = HiperfactEngine(engine_config(preset, overrides))
         e.add_rules(rdfs_plus_rules())
         snap = e.ops.transfers.snapshot()
         work = e.ops.sort_work.snapshot()
+        codecs0 = e.ops.residency_stats()["codecs"]
         n_shapes = len(shapes)
         kernels.reset_counts()  # the main path's run starts here
         t0 = time.perf_counter()
@@ -291,11 +344,15 @@ def engine_phase(torch, scale: int, seed: int):
         counts = kernels.counts()  # ... and ends here
         moved = e.ops.transfers.delta(snap)
         sorted_work = e.ops.sort_work.delta(work)
+        res = e.ops.residency_stats()
+        res["codecs"] = {k: v - codecs0[k] for k, v in res["codecs"].items()}
         checksum = decoded_fact_checksum(e)
-        rec = {"preset": preset, "backend": "torch", "eval_mode": "full",
+        rec = {"preset": preset, **overrides, "backend": "torch",
+               "eval_mode": "full",
                "load_s": t1 - t0, "infer_s": t2 - t1, "query_s": t3 - t2,
                "facts_inferred": stats.facts_inferred,
                "iterations": stats.iterations,
+               "sketch_misses": stats.sketch_misses,
                "rows": [len(s) for s in rows],
                "launches": counts["launches"],
                "width_fallbacks": counts["fallbacks"],
@@ -303,6 +360,7 @@ def engine_phase(torch, scale: int, seed: int):
                              "h2d_bytes": moved.h2d_bytes,
                              "d2h_calls": moved.d2h_calls,
                              "d2h_bytes": moved.d2h_bytes},
+               "residency": res,
                "sort_work": sorted_work.as_dict(),
                "merge_shapes": sorted(set(shapes[n_shapes:])),
                "cache": e.ops.cache.stats(),
@@ -312,31 +370,71 @@ def engine_phase(torch, scale: int, seed: int):
         print(json.dumps(rec), flush=True)
         for name, c in counts["launches"].items():
             launches[name] += c
+        label = f"{preset} {overrides}"
         if stats.facts_inferred != ref_stats.facts_inferred:
-            fail(f"{preset}: facts_inferred {stats.facts_inferred} != "
+            fail(f"{label}: facts_inferred {stats.facts_inferred} != "
                  f"{ref_stats.facts_inferred} (numpy)")
         if checksum != ref_sum:
-            fail(f"{preset}: decoded fact checksum differs from numpy")
+            fail(f"{label}: decoded fact checksum differs from numpy")
         if rows != ref_rows:
-            fail(f"{preset}: query row sets differ from numpy")
-        # release this engine's device cache before the next preset
+            fail(f"{label}: query row sets differ from numpy")
+        if overrides["compress"] and not (
+                0 < res["resident_bytes_coded"] < res["resident_bytes_raw"]):
+            fail(f"{label}: coded resident bytes {res['resident_bytes_coded']}"
+                 f" not below raw {res['resident_bytes_raw']}")
+        # release this engine's device cache before the next run
         e.ops.cache.clear()
     undo()
-    # a preset may skip a kernel for a reason of its data: an index
-    # mirror whose column outgrows its power-of-two buffer is re-sorted,
-    # not merged (at scale 500, infer1's only in-infer LPIM compaction
-    # does), so the check is over the path of both presets together
+    launches = unique_mask_entry(torch, launches)
+    # a run may skip a kernel for a reason of its data or its mode: an
+    # index mirror whose column outgrows its power-of-two buffer is
+    # re-sorted, not merged (at scale 500, infer1's only in-infer LPIM
+    # compaction does), and only the sketch planner and Ops.unique_mask
+    # reach unique_mask_sorted, so the check is over the whole path
     for name, c in launches.items():
         if c <= 0:
             fail(f"kernel {name} never launched on the path")
-    device_profile(torch, facts, "infer1")
+    device_profile(torch, facts, "infer1", {"compress": False})
+    device_profile(torch, facts, "infer1", {"compress": True})
     return launches, max(shapes)
 
 
-OUR_KERNELS = ("tile_passes", "cross_pass", "probe_kernel", "rank_kernel")
+def unique_mask_entry(torch, launches: dict) -> dict:
+    """``Ops.unique_mask`` (the compressed backend's entry point of the
+    unique-mask kernel) once at full width: a sorted column of 2^20 rows
+    with ties, against ``NumpyOps.unique_mask``."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.backend import get_backend
+
+    ops = get_backend("torch", compress=True)
+    x = np.sort(np.random.RandomState(7).randint(0, 1 << 17, 1 << 20)
+                ).astype(np.int64) + (1 << 40)
+    snap = ops.transfers.snapshot()
+    kernels.reset_counts()  # the entry point's run starts here
+    t0 = time.perf_counter()
+    got = ops.unique_mask(x)
+    secs = time.perf_counter() - t0
+    counts = kernels.counts()["launches"]  # ... and ends here
+    moved = ops.transfers.delta(snap)
+    want = get_backend("numpy").unique_mask(x)
+    equal = bool(np.array_equal(got, want))
+    print(json.dumps({"entry": "Ops.unique_mask", "rows": len(x),
+                      "distinct": int(want.sum()), "seconds": secs,
+                      "launches": counts, "h2d_bytes": moved.h2d_bytes,
+                      "d2h_bytes": moved.d2h_bytes, "equal": equal}),
+          flush=True)
+    if not equal:
+        fail("Ops.unique_mask differs from NumpyOps.unique_mask")
+    return {k: launches[k] + counts[k] for k in launches}
 
 
-def device_profile(torch, facts, preset: str) -> None:
+OUR_KERNELS = ("tile_passes", "cross_pass", "probe_kernel", "rank_kernel",
+               "unique_mask_kernel")
+
+
+def device_profile(torch, facts, preset: str, overrides: dict) -> None:
     """Device busy time of one more fresh run of ``preset`` (load, infer,
     queries) under ``torch.profiler``: the sum of device kernel times,
     the share spent in the port's own CUDA kernels, and the top kernels.
@@ -345,13 +443,11 @@ def device_profile(torch, facts, preset: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import EngineConfig, HiperfactEngine
+    from repro_torch.core import HiperfactEngine
     from repro_torch.core.rulesets import rdfs_plus_rules
     from repro_torch.datasets import LUBM_QUERIES
 
-    cfg = getattr(EngineConfig, preset)(backend="torch")
-    cfg.eval_mode = "full"
-    e = HiperfactEngine(cfg)
+    e = HiperfactEngine(engine_config(preset, overrides))
     e.add_rules(rdfs_plus_rules())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -371,12 +467,14 @@ def device_profile(torch, facts, preset: str) -> None:
     busy = sum(us for us, _ in per.values()) / 1e6
     ours = sum(us for k, (us, _) in per.items()
                if any(n in k for n in OUR_KERNELS)) / 1e6
+    copies = sum(us for k, (us, _) in per.items()
+                 if "memcpy" in k.lower()) / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     print(json.dumps({
-        "profile": preset, "wall_s": wall,
+        "profile": preset, **overrides, "wall_s": wall,
         "device_busy_s": busy if busy else "not measured",
         "idle_share": 1 - busy / wall if busy else "not measured",
-        "own_kernels_s": ours,
+        "own_kernels_s": ours, "copies_s": copies,
         "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                                for k, (us, c) in top]}), flush=True)
 
@@ -394,10 +492,11 @@ KERNELS = [
     {"name": "merge_ranks", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/merge_ranks.cu",
      "replaces": "src/repro/kernels/sortmerge/sortmerge.py:172"},
+    {"name": "unique_mask_sorted", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/unique_mask.cu",
+     "replaces": "src/repro/kernels/uniquefilter/uniquefilter.py:32"},
 ]
 QUEUED = [
-    {"name": "unique_mask_sorted", "status": "queued", "roadmap": "B5",
-     "replaces": "src/repro/kernels/uniquefilter/uniquefilter.py:32"},
     {"name": "flash_attention", "status": "queued", "roadmap": "B6",
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     {"name": "ssd_intra", "status": "queued", "roadmap": "B7",

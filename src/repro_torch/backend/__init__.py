@@ -32,9 +32,11 @@ _CACHE: dict[str, Ops] = {}
 
 def fresh_backend(name: str = "torch",
                   compress: bool | None = None) -> Ops:
-    """A new, uncached ``Ops`` instance.  ``compress=True`` raises on the
-    torch backends: compressed resident columns are not ported yet
-    (ROADMAP A6)."""
+    """A new, uncached ``Ops`` instance.
+
+    ``compress`` controls the torch backends' compressed resident column
+    tier (``None`` defers to ``REPRO_COMPRESS``, default on, as in the
+    reference); the numpy twin is always raw."""
     if name == "numpy":
         return NumpyOps()
     if name in ("torch", "torch-cpu"):

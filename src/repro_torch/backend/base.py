@@ -111,10 +111,19 @@ class Ops(abc.ABC):
     #: (device backends may flip this on; the host twin is always raw)
     compress = False
 
+    def residency_stats(self) -> dict:
+        """Coded-vs-raw footprint of the backend's resident column tier
+        (see ``TorchOps.residency_stats``).  Backends without a resident
+        tier report an empty (all-zero) footprint."""
+        return {"resident_bytes_raw": 0, "resident_bytes_coded": 0,
+                "columns_raw": 0, "columns_coded": 0, "codecs": {},
+                "compress": self.compress}
+
     # -- shared derived algorithms ---------------------------------------
     def sort_perm(self, keys: np.ndarray, *, cache_key=None,
                   version: int | None = None, n_dead: int = 0,
-                  alive=None) -> tuple[np.ndarray, np.ndarray]:
+                  alive=None, hint: str | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
         """(sorted keys, permutation) — the index-build form of the KV
         sort, **stable** (equal keys keep input order) on every backend.
         Default: carry an arange payload through ``sort_kv``; backends may
@@ -138,7 +147,12 @@ class Ops(abc.ABC):
         ids, relative order preserved), so downstream consumers see the
         same row sets they would after their own alive-filtering, and
         dead rows stop paying sort cost.  Backends without mirror state
-        apply the filter directly."""
+        apply the filter directly.
+
+        ``hint`` ("dict" | "for" | None) is a compression hint about the
+        column's shape (attribute columns are low-cardinality, id
+        columns are dense ranges) — backends with a compressed resident
+        tier use it to skip futile codec scans; others ignore it."""
         keys = np.asarray(keys)
         if alive is not None and n_dead:
             rows = np.flatnonzero(np.asarray(alive[:len(keys)], bool))

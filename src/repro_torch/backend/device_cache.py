@@ -175,6 +175,12 @@ class MirrorRuns:
     # carries; the maintenance policy bounds it.
     n_dead: int = 0
     src_n: int = -1  # -1 = uncompacted (src_n == n)
+    # code-domain identity of the column the run was tagged over
+    # (``ColumnCodec.cid``; 0 = raw int64).  A recode-rebuild renumbers
+    # existing rows, so a run tagged in the old domain must never absorb
+    # a new-domain tail — the maintenance path compares cids and falls
+    # back to a full sort on mismatch.
+    cid: int = 0
 
     def __post_init__(self) -> None:
         if self.src_n < 0:

@@ -24,7 +24,8 @@ class NumpyOps(Ops):
 
     def sort_perm(self, keys: np.ndarray, *, cache_key=None,
                   version: int | None = None, n_dead: int = 0,
-                  alive=None) -> tuple[np.ndarray, np.ndarray]:
+                  alive=None, hint: str | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
         # native-dtype fast path: no int64 casts, no arange payload.
         # cache_key/version are device-residency hints (mirror caching +
         # merge maintenance) — meaningless here.  The alive mask is not:

@@ -11,6 +11,8 @@ primitive maps onto the port's kernel wrappers:
   (key-value bitonic sort of the right side, sorted probe, bounded
   expansion).
 * ``semi_join`` -> bitonic sort + ``torch.searchsorted``.
+* ``unique_mask`` -> ``kernels/uniquefilter`` (the first-of-run
+  neighbour-compare kernel), as does the distinct count of ``sketch``.
 * ``dedup_rows`` / ``dedup_select_h`` -> chained tagged sorts (stable
   lexsort, §2.3's SU filter) + neighbor compare.
 * ``batch_probe`` -> the sorted-probe kernel against the resident sorted
@@ -50,9 +52,21 @@ overflow and capacity growth force the full-sort fallback.
 into full sorts and delta merges, so "per-append index cost scales with
 Δ" is measurable.
 
-Not ported yet, and raising ``NotImplementedError`` rather than running
-on the host: compressed resident columns (``compress=True``, ROADMAP A6),
-``unique_mask`` (B5) and ``sketch`` (A7).
+Compressed resident columns (``compress``; ``None`` follows
+``REPRO_COMPRESS``, on unless it is ``0``/``false``/``off``, as in the
+reference): resident column buffers and resident handles hold dict, FoR
+or RLE *codes* (``backend/codecs.py``) in the codec's narrow dtype
+instead of raw int64.  Index mirrors sort, merge and probe in code
+domain (order-preserving codes; the tagged runs remember the codec's
+``cid`` and refuse to merge across a recode), joins over two columns
+with the same join token run on the codes, two dictionaries recode the
+smaller side on the device through a rank crossmap, and everything else
+decodes on the device at the kernels' boundary.  Narrow codes widen to
+int64 on entry to every kernel.  The decode and recode composites
+(``decode_*``, ``narrow_sorted``, ``dict_crossmap``, ``map_codes``) are
+stock torch, as the reference leaves them to XLA.  Decoded results are
+bit-identical to the raw path; ``residency_stats()`` reports coded vs
+raw resident bytes and the codec counters.
 
 All device work runs behind a lock, because the engine's PF/PW thread
 pools may issue primitives concurrently.
@@ -60,13 +74,16 @@ pools may issue primitives concurrently.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import threading
 
 import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.backend.base import Ops
+from repro_torch.backend import codecs
+from repro_torch.backend.base import SKETCH_BUCKETS, Ops
 from repro_torch.backend.device_cache import (DeviceArrayCache,
                                               MirrorRuns, SortWorkCounter,
                                               TransferCounter)
@@ -76,7 +93,8 @@ from repro_torch.kernels.mergejoin.mergejoin import probe_sorted
 from repro_torch.kernels.mergejoin.ops import (device_compact,
                                                merge_join_bounded,
                                                merge_join_gather_bounded,
-                                               pack_pairs_bounded)
+                                               pack_pairs_bounded,
+                                               splitmix64_dev)
 from repro_torch.kernels.sortmerge.ops import (device_dedup_rows,
                                                device_merge_runs,
                                                device_sort,
@@ -85,6 +103,7 @@ from repro_torch.kernels.sortmerge.ops import (device_dedup_rows,
                                                merge_sorted_mirror_impl,
                                                tag_bits_for,
                                                tagged_from_sorted)
+from repro_torch.kernels.uniquefilter.uniquefilter import unique_mask_sorted
 
 INT64_MAX = np.iinfo(np.int64).max
 INT64_MIN = np.iinfo(np.int64).min
@@ -121,6 +140,7 @@ def stable_sort_perm_fallback(keys: torch.Tensor, n_real: int):
     sorts.  Pads sort last via an explicit flag, so real keys may hold any
     int64 value including the sentinels."""
     kernels.FALLBACKS["stable_sort_perm"] += 1
+    keys = keys.to(torch.int64)
     cap = keys.shape[0]
     lane = torch.arange(cap, dtype=torch.int64, device=keys.device)
     order = _lexsort((keys, lane >= n_real))
@@ -194,6 +214,129 @@ _CMP = {"==": torch.eq, "!=": torch.ne, ">=": torch.ge, "<=": torch.le,
         ">": torch.gt, "<": torch.lt}
 
 
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+
+
+def _unsigned_mod(z: torch.Tensor, m: int) -> torch.Tensor:
+    """``z`` read as uint64, modulo ``m`` (torch's ``%`` is a signed
+    floor-mod: a negative lane is its uint64 value minus 2**64)."""
+    r = torch.remainder(z, m)
+    return torch.where(z < 0, (r + (1 << 64) % m) % m, r)
+
+
+def sketch_hist(x: torch.Tensor, n_real: int, buckets: int):
+    """Cardinality sketch over one padded int64 column (pads are int64
+    max): per-bucket row counts, per-bucket distinct-value counts and
+    the distinct total, all as device tensors.  The column sorts through
+    ``device_sort`` and its first-of-run mask is the ``unique_mask_sorted``
+    kernel, the function the reference computes inline; the bucketing
+    (splitmix64 mod ``buckets``) and the histograms are stock torch."""
+    valid = _lanes(x) < n_real
+
+    def hist(vals, keep):
+        b = _unsigned_mod(splitmix64_dev(vals), buckets)
+        out = torch.zeros(buckets + 1, dtype=torch.int64, device=x.device)
+        out.scatter_add_(0, torch.where(keep, b, buckets),
+                         torch.ones_like(b))
+        return out[:buckets]
+
+    s = device_sort(x)  # pads are int64 max: they sort last
+    newv = unique_mask_sorted(s) & valid
+    return hist(x, valid), hist(s, newv), newv.sum()
+
+
+# --------------------------------------------------------------------------
+# compressed-column composites: decode and recode on the device, never on
+# the host (the reference's XLA work outside its kernels)
+
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32,
+                np.dtype(np.int64): torch.int64}
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64)
+
+
+def decode_for(codes: torch.Tensor, ref: int) -> torch.Tensor:
+    """Frame-of-reference decode; pad lanes stay garbage (handle
+    contract: consumers mask by n)."""
+    return widen(codes) + ref
+
+
+def decode_for_n(codes: torch.Tensor, ref: int, n_real: int,
+                 fill: int) -> torch.Tensor:
+    """Frame-of-reference decode with exact re-pad: lanes past ``n_real``
+    become ``fill`` (for consumers whose pad lanes are load-bearing
+    sentinels)."""
+    return torch.where(_lanes(codes) < n_real, decode_for(codes, ref), fill)
+
+
+def decode_dict(codes: torch.Tensor, dvals: torch.Tensor) -> torch.Tensor:
+    """Dictionary decode (rank gather); pad lanes garbage."""
+    return dvals[widen(codes).clamp(0, dvals.shape[0] - 1)]
+
+
+def decode_dict_n(codes: torch.Tensor, dvals: torch.Tensor,
+                  n_real: int) -> torch.Tensor:
+    """Dictionary decode with exact re-pad to int64 max (sort inputs:
+    pads must sort last)."""
+    return torch.where(_lanes(codes) < n_real, decode_dict(codes, dvals),
+                       INT64_MAX)
+
+
+def decode_rle(values: torch.Tensor, lengths: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """Run-length decode to ``cap`` lanes.  Run pads have length 0; lane
+    ``p`` takes the run whose end is the first one past ``p``, so lanes
+    past the real prefix repeat the last run (garbage by contract).  A
+    searchsorted over the run ends instead of ``repeat_interleave``,
+    whose ``output_size`` must equal the sum of the repeats."""
+    ends = torch.cumsum(widen(lengths).clamp(0, cap), 0)
+    lane = torch.arange(cap, dtype=torch.int64, device=values.device)
+    run = torch.searchsorted(ends, lane, right=True)
+    return values[run.clamp(max=values.shape[0] - 1)]
+
+
+def decode_sorted_for(sk: torch.Tensor, n_real: int, ref: int
+                      ) -> torch.Tensor:
+    """Decode a code-domain sorted mirror, re-padding with the sort
+    sentinel so the output obeys the sorted-buffer contract."""
+    return torch.where(_lanes(sk) < n_real, sk + ref, INT64_MAX)
+
+
+def decode_sorted_dict(sk: torch.Tensor, n_real: int,
+                       dvals: torch.Tensor) -> torch.Tensor:
+    return torch.where(_lanes(sk) < n_real,
+                       dvals[sk.clamp(0, dvals.shape[0] - 1)], INT64_MAX)
+
+
+def narrow_sorted(sk: torch.Tensor, n_real: int, dtype) -> torch.Tensor:
+    """Store a code-domain sorted mirror at the codec's width: real codes
+    fit by construction, pads re-fill with the narrow dtype's max so the
+    stored mirror stays sorted (probes search the whole buffer)."""
+    dt = _TORCH_DTYPE[np.dtype(dtype)]
+    return torch.where(_lanes(sk) < n_real, sk,
+                       torch.iinfo(dt).max).to(dt)
+
+
+def dict_crossmap(lvals: torch.Tensor, rvals: torch.Tensor,
+                  no_match: int) -> torch.Tensor:
+    """Cross-dictionary recode table: left rank -> right rank for shared
+    values, ``no_match`` (the right domain's never-matching code)
+    otherwise.  Both dictionaries are sorted int64."""
+    rank = torch.searchsorted(rvals, lvals)
+    idx = rank.clamp(0, rvals.shape[0] - 1)
+    return torch.where(rvals[idx] == lvals, rank, no_match)
+
+
+def map_codes(cmap: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Apply a crossmap to a code column (recode one join side on the
+    device); garbage pad codes clip harmlessly."""
+    return cmap[widen(codes).clamp(0, cmap.shape[0] - 1)]
+
+
 class TorchOps(Ops):
     """Bounded-shape, device-resident implementation of ``Ops`` on torch
     tensors (see the module docstring)."""
@@ -204,10 +347,6 @@ class TorchOps(Ops):
     def __init__(self, device: str = "cuda", block: int = 1024,
                  cache_bytes: int | None = None,
                  compress: bool | None = None) -> None:
-        if compress:
-            raise NotImplementedError(
-                "compressed resident columns are not ported yet "
-                "(ROADMAP A6)")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -230,7 +369,19 @@ class TorchOps(Ops):
                 self.device).total_memory // 4
                 if self.device.type == "cuda" else 256 << 20)
         self.cache = DeviceArrayCache(cache_bytes)
-        self.compress = False
+        # compressed device-resident columns: on by default (decoded
+        # results are bit-identical by construction); REPRO_COMPRESS=0
+        # or compress=False keeps raw int64 buffers end to end
+        if compress is None:
+            env = os.environ.get("REPRO_COMPRESS")
+            compress = env is None or env not in ("0", "false", "off")
+        self.compress = bool(compress)
+        # codec accounting (monotone; residency_stats() reads them)
+        self._res_counts = {"for": 0, "dict": 0, "rle": 0,
+                            "recode_rebuilds": 0, "dict_extends": 0,
+                            "decode_calls": 0, "code_joins": 0,
+                            "cross_recodes": 0}
+        self._dict_bufs: dict[int, torch.Tensor] = {}  # did -> dictionary
 
     # -- plumbing ---------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -243,10 +394,26 @@ class TorchOps(Ops):
         return max(32, 1 << (max(n, 1) - 1).bit_length())
 
     @staticmethod
-    def _pad(a: np.ndarray, cap: int, fill: int) -> np.ndarray:
-        out = np.full(cap, fill, np.int64)
+    def _pad(a: np.ndarray, cap: int, fill: int, dtype=np.int64
+             ) -> np.ndarray:
+        """``a`` padded to ``cap`` lanes of ``dtype`` (codes ship narrow)."""
+        out = np.full(cap, fill, dtype)
         out[: len(a)] = a
         return out
+
+    def _dict_dev(self, codec) -> torch.Tensor | None:
+        """Device copy of a codec's dictionary, shared per ``did`` (the
+        content token) so self-joins upload it once.  Caller holds the
+        lock."""
+        if codec is None or codec.values is None:
+            return None
+        buf = self._dict_bufs.get(codec.did)
+        if buf is None:
+            if len(self._dict_bufs) > 512:  # dids are content-hashed;
+                self._dict_bufs.clear()     # bound stale-token buildup
+            buf = self._to_dev(codec.values)
+            self._dict_bufs[codec.did] = buf
+        return buf
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """Upload (counted); always a copy, never a view of ``a``."""
@@ -265,38 +432,127 @@ class TorchOps(Ops):
     def _arange(self, n: int) -> torch.Tensor:
         return torch.arange(n, dtype=torch.int64, device=self.device)
 
+    # -- device-resident column buffers ------------------------------------
+    def _colbuf_nbytes(self, value: dict) -> int:
+        codec = value["codec"]
+        extra = (codec.values.nbytes
+                 if codec is not None and codec.values is not None else 0)
+        return value["buf"].nbytes + extra
+
+    def _extend_colbuf(self, key, version: int, old: dict,
+                       col: np.ndarray) -> dict | None:
+        """Tail extension of a resident column buffer: only the appended
+        tail goes up, into a copy of the buffer (readers of the older
+        version keep theirs).  Coded buffers extend in *code domain*: the
+        tail is encoded with the resident codec (a dictionary may
+        append-extend — existing rank codes are untouched, so derived
+        mirrors stay valid).  Returns ``None`` when the tail escapes the
+        code domain or the capacity; the caller recodes/rebuilds."""
+        n, n_old = len(col), old["n"]
+        if n > old["buf"].shape[0]:
+            return None
+        delta = col[n_old:]
+        codec = old["codec"]
+        if codec is None:
+            tail = delta
+        else:
+            enc = codecs.try_encode_delta(codec, delta)
+            if enc is None:
+                return None
+            codec_new, tail = enc
+            if codec_new.did != codec.did:
+                self._res_counts["dict_extends"] += 1
+            codec = codec_new
+        buf = old["buf"].clone()
+        buf[n_old:n] = self._to_dev(tail)
+        value = {"buf": buf, "n": n,
+                 "kmin": min(old["kmin"], int(tail.min())),
+                 "kmax": max(old["kmax"], int(tail.max())),
+                 "codec": codec, "dvals": self._dict_dev(codec)}
+        self.cache.put(key, version, value, self._colbuf_nbytes(value))
+        self.cache.note_extended(key)
+        return value
+
     def _resident_column(self, cache_key, version: int, col: np.ndarray,
-                         fill: int) -> dict:
+                         fill: int, *, encode: bool | None = None,
+                         hint: str | None = None) -> dict:
         """Device buffer of an append-only int64 column (a table's index
-        column, packed keys or values), padded with ``fill``: ``{"buf",
-        "n", "kmin", "kmax"}``.  A hit at ``version`` costs nothing; an
-        entry cached at an older version whose length is a prefix of
-        ``col`` is *extended* — only the appended tail goes up — while the
-        capacity holds; anything else uploads the column whole.  Caller
-        holds the lock."""
+        column, packed keys or values): ``{"buf", "n", "kmin", "kmax",
+        "codec", "dvals"}``.
+
+        With ``codec=None`` the buffer is the raw int64 column padded
+        with ``fill`` and ``kmin``/``kmax`` are value bounds.  With a
+        codec the buffer holds *codes* in the codec's narrow dtype,
+        ``kmin``/``kmax`` are **code-domain** bounds (what the tagged
+        sort needs), pads are the codec's code-domain twin of ``fill``
+        and ``dvals`` is the device dictionary (dict codecs).  A hit at
+        ``version`` costs nothing; an entry cached at an older version
+        whose length is a prefix of ``col`` is *extended*; anything else
+        uploads the column whole.  ``encode=False`` keeps a cold build
+        raw (``hint`` names the codec the caller expects).  Caller holds
+        the lock."""
         key = ("colbuf", cache_key, fill)
         n = len(col)
         hit = self.cache.get(key, version)
         if hit is not None and hit["n"] == n:
             return hit
         e = self.cache.get_any(key)
-        if (e is not None and e.version < version and e.value["n"] < n
-                and n <= e.value["buf"].shape[0]):
-            old = e.value
-            tail = col[old["n"]:]
-            buf = old["buf"].clone()  # older-version readers keep theirs
-            buf[old["n"]:n] = self._to_dev(tail)
-            value = {"buf": buf, "n": n,
-                     "kmin": min(old["kmin"], int(tail.min())),
-                     "kmax": max(old["kmax"], int(tail.max()))}
-            self.cache.put(key, version, value, buf.nbytes)
-            self.cache.note_extended(key)
-            return value
-        buf = self._to_dev(self._pad(col, self._bucket(n), fill))
-        value = {"buf": buf, "n": n, "kmin": int(col.min()),
-                 "kmax": int(col.max())}
-        self.cache.put(key, version, value, buf.nbytes)
+        if e is not None and e.version < version and e.value["n"] < n:
+            value = self._extend_colbuf(key, version, e.value, col)
+            if value is not None:
+                return value
+            if e.value["codec"] is not None:
+                self._res_counts["recode_rebuilds"] += 1
+        # full (re-)upload: first sight of this column, a non-append
+        # change, capacity growth, or a tail that escaped the code domain
+        do_encode = self.compress if encode is None else encode
+        codec = payload = None
+        if do_encode and n:
+            codec, payload = codecs.choose_codec(col, hint=hint)
+            # a rebuild whose fresh codec encodes *identically* to the
+            # displaced one (same FoR ref and width, or same dictionary)
+            # keeps the old code-domain identity, so coded mirror runs
+            # stay mergeable across capacity growth
+            if codec is not None and e is not None:
+                oldc = e.value["codec"]
+                if oldc is not None and codecs.same_code_domain(oldc,
+                                                                codec):
+                    codec = dataclasses.replace(codec, cid=oldc.cid)
+        cap = self._bucket(n)
+        if codec is None:
+            buf = self._to_dev(self._pad(col, cap, fill))
+            value = {"buf": buf, "n": n, "kmin": int(col.min()),
+                     "kmax": int(col.max()), "codec": None, "dvals": None}
+        else:
+            self._res_counts[codec.kind] += 1
+            buf = self._to_dev(self._pad(payload, cap, codec.pad_code(fill),
+                                         codec.dtype))
+            value = {"buf": buf, "n": n, "kmin": int(payload.min()),
+                     "kmax": int(payload.max()), "codec": codec,
+                     "dvals": self._dict_dev(codec)}
+        self.cache.put(key, version, value, self._colbuf_nbytes(value))
         return value
+
+    def _raw_colbuf(self, cv: dict, col: np.ndarray, fill: int):
+        """Raw int64 device view of a resident column entry.  A shared
+        entry may be *coded* even for a caller that passed
+        ``encode=False``: that flag governs a cold build only, while a
+        hit or an append-extend returns whatever domain another consumer
+        cached (``join_pairs`` dict-codes the packed-key column).  Coded
+        buffers decode on the device; pad lanes refill with a sentinel,
+        which the pad-flag-based consumers ignore.  Caller holds the
+        lock."""
+        codec = cv["codec"]
+        if codec is None:
+            return cv["buf"]
+        n = cv["n"]
+        if codec.kind == "for":
+            return decode_for_n(cv["buf"], codec.ref, n, fill)
+        if codec.kind == "dict" and cv["dvals"] is not None:
+            self._res_counts["decode_calls"] += 1
+            return decode_dict_n(cv["buf"], cv["dvals"], n)
+        # unknown coded shape: transient raw upload
+        return self._to_dev(self._pad(col, self._bucket(len(col)), fill))
 
     # -- primitives -------------------------------------------------------
     def _stable_perm_device(self, buf, n: int, kmin: int, kmax: int):
@@ -311,7 +567,7 @@ class TorchOps(Ops):
 
     def _mirror_sort_device(self, cache_key, version: int, buf, n: int,
                             kmin: int, kmax: int, n_dead: int, keys64,
-                            alive):
+                            alive, codec=None):
         """(sorted, perm, real length) device tensors for a cached mirror,
         maintained incrementally: when the resident ``MirrorRuns`` entry
         is an append-only prefix of the column at an unchanged capacity,
@@ -327,10 +583,19 @@ class TorchOps(Ops):
         ``n_dead > 0``) **compacts**: only the alive rows are sorted
         (host-gathered, transient upload) and the seeded run maps its tag
         bits back to original row ids, so the mirror — and every merge
-        after it — stops carrying dead rows.  Caller holds the lock."""
+        after it — stops carrying dead rows.
+
+        With a ``codec`` the buffer (and so the whole mirror) lives in
+        code domain: ``kmin``/``kmax`` are code bounds — narrow codes are
+        what lets wide-spread columns pass ``fits_tagged_width`` — and
+        the resident run remembers the codec's ``cid``, refusing to merge
+        across a recode (a recode renumbers existing rows, so the old
+        run's tagged codes are in a dead domain).  Caller holds the
+        lock."""
         cap = buf.shape[0]
         tb = tag_bits_for(cap)
         fits = fits_tagged_width(kmin, kmax, cap)
+        cid = codec.cid if codec is not None else 0
         key = ("runs", cache_key)
         ent = self.cache.get_any(key)
         runs = ent.value if ent is not None else None
@@ -343,6 +608,7 @@ class TorchOps(Ops):
             carried < 0 or carried * 4 > max(n - n_dead, 1))
         if (runs is not None and fits and not compacting and not churned
                 and runs.cap == cap and runs.tag_bits == tb
+                and runs.cid == cid
                 and runs.src_n < n and runs.kmin >= kmin):
             d = n - runs.src_n
             dcap = self._delta_bucket(d)
@@ -353,7 +619,7 @@ class TorchOps(Ops):
                 self.cache.put(key, version, MirrorRuns(
                     tagged=merged, n=runs.n + d, kmin=kmin, cap=cap,
                     tag_bits=tb, merges=runs.merges + 1,
-                    n_dead=runs.n_dead, src_n=n), merged.nbytes)
+                    n_dead=runs.n_dead, src_n=n, cid=cid), merged.nbytes)
                 self.sort_work.count_merge(dcap * 8)
                 return sk, perm, runs.n + d
         rebuild = (runs is not None and not compacting and
@@ -372,6 +638,10 @@ class TorchOps(Ops):
                 return None, None, 0
             ckeys = keys64[rows]
             ccap = self._bucket(m)
+            if codec is not None:
+                # stay in code domain so the seeded run matches the
+                # resident buffer's domain (same cid as the colbuf)
+                ckeys = codecs.encode_with(codec, ckeys).astype(np.int64)
             cbuf = self._to_dev(self._pad(ckeys, ccap, INT64_MAX))
             sk, permc = self._stable_perm_device(
                 cbuf, m, int(ckeys.min()), int(ckeys.max()))
@@ -393,7 +663,8 @@ class TorchOps(Ops):
                                             tag_bits=tb)
                 self.cache.put(key, version, MirrorRuns(
                     tagged=tagged, n=m, kmin=kmin, cap=cap, tag_bits=tb,
-                    merges=0, n_dead=n_dead, src_n=n), tagged.nbytes)
+                    merges=0, n_dead=n_dead, src_n=n, cid=cid),
+                    tagged.nbytes)
             else:
                 self.cache.invalidate(key)
             return sk, perm, m
@@ -405,7 +676,7 @@ class TorchOps(Ops):
             # the run holds ALL n rows (nothing compacted out): n_dead=0
             self.cache.put(key, version, MirrorRuns(
                 tagged=tagged, n=n, kmin=kmin, cap=cap, tag_bits=tb,
-                merges=0, n_dead=0, src_n=n), tagged.nbytes)
+                merges=0, n_dead=0, src_n=n, cid=cid), tagged.nbytes)
         else:
             # width overflow: the fallback's output has no tagged form to
             # merge into — appends keep re-sorting
@@ -414,7 +685,8 @@ class TorchOps(Ops):
 
     def sort_perm(self, keys: np.ndarray, *, cache_key=None,
                   version: int | None = None, n_dead: int = 0,
-                  alive=None) -> tuple[np.ndarray, np.ndarray]:
+                  alive=None, hint: str | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
         keys = np.asarray(keys)
         n = len(keys)
         if n == 0:
@@ -428,10 +700,11 @@ class TorchOps(Ops):
         with self._lock:
             if use_cache:
                 colv = self._resident_column(cache_key, version, keys64,
-                                             INT64_MAX)
+                                             INT64_MAX, hint=hint)
+                codec = colv["codec"]
                 sk, perm, n_real = self._mirror_sort_device(
                     cache_key, version, colv["buf"], n, colv["kmin"],
-                    colv["kmax"], int(n_dead), keys64, alive)
+                    colv["kmax"], int(n_dead), keys64, alive, codec)
                 if sk is None:  # fully tombstoned: empty mirror
                     out = (np.empty(0, np.int64), np.empty(0, np.int64))
                     self.cache.invalidate(("permdev", cache_key))
@@ -439,9 +712,22 @@ class TorchOps(Ops):
                     return out
                 # the device-side sorted mirror stays resident: batched
                 # rank-1 probes (``batch_probe``) search it without
-                # re-uploading the sorted column
+                # re-uploading the sorted column.  Coded columns keep the
+                # *narrow code-domain* mirror (probes are encoded into
+                # the same domain on the host) and decode the sorted
+                # keys on the device for the host mirror
+                if codec is not None:
+                    sk_store = narrow_sorted(sk, n_real, codec.dtype)
+                    self._res_counts["decode_calls"] += 1
+                    if codec.kind == "dict":
+                        sk = decode_sorted_dict(sk, n_real, colv["dvals"])
+                    else:
+                        sk = decode_sorted_for(sk, n_real, codec.ref)
+                else:
+                    sk_store = sk
                 self.cache.put(("permdev", cache_key), version,
-                               {"sk": sk, "n": n_real}, sk.nbytes)
+                               {"sk": sk_store, "n": n_real, "codec": codec},
+                               sk_store.nbytes)
             elif alive is not None and n_dead:
                 # uncached + tombstoned: compact on the host, sort the
                 # alive rows, map the perm back to original row ids
@@ -527,8 +813,16 @@ class TorchOps(Ops):
         cap = self._bucket(max(n, m))
         with self._lock:
             if rkeys_key is not None and rkeys_version is not None:
-                rp = self._resident_column(rkeys_key, rkeys_version, rkeys,
-                                           INT64_MIN)["buf"]
+                colv = self._resident_column(rkeys_key, rkeys_version, rkeys,
+                                             INT64_MIN)
+                rp = colv["buf"]
+                if colv["codec"] is not None:
+                    # the right side is resident in code domain: encode
+                    # the probe keys into the same domain instead of
+                    # decoding the buffer.  Absent left keys become
+                    # ``no_match_code`` (above every real code, inside
+                    # both pad sentinels), which matches nothing
+                    lkeys = codecs.encode_probes(colv["codec"], lkeys)
             else:
                 rp = self._to_dev(self._pad(rkeys, self._bucket(m),
                                             INT64_MIN))
@@ -547,9 +841,36 @@ class TorchOps(Ops):
             packed = self._to_host(pack_pairs_bounded(li, ri, valid)[:total])
         return packed >> 32, packed & 0xFFFFFFFF
 
+    def _narrow_h2d(self, a: np.ndarray, cap: int, fill: int, lo: int,
+                    hi: int) -> torch.Tensor:
+        """Upload an int64 array through a frame-of-reference narrowing
+        when ``[lo, hi]`` fits a smaller dtype, then widen back on the
+        device (transient-transfer compression: the shift is exact, and
+        lanes past the real prefix re-pad to ``fill``).  Raw upload when
+        compression is off or the span is too wide.  Caller holds the
+        lock."""
+        dt = codecs.smallest_dtype(hi - lo) if self.compress else None
+        if dt is None:
+            return self._to_dev(self._pad(a, cap, fill))
+        nar = self._to_dev(self._pad((a - lo).astype(dt), cap,
+                                     np.iinfo(dt).max, dt))
+        return decode_for_n(nar, lo, len(a), fill)
+
     def unique_mask(self, sorted_keys: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(
-            "unique_mask_sorted is not ported yet (ROADMAP B5)")
+        """First-of-run mask through the ``unique_mask_sorted`` kernel.
+        The keys go up narrowed by their span (``_narrow_h2d``); the
+        span is taken over the whole array, so an unsorted input still
+        uploads exactly and gets the neighbour-compare mask."""
+        x = np.asarray(sorted_keys, np.int64)
+        n = len(x)
+        if n == 0:
+            return np.zeros(0, bool)
+        # tail pads never influence mask lanes < n: no sentinel guard
+        with self._lock:
+            xp = self._narrow_h2d(x, self._bucket(n), INT64_MAX,
+                                  int(x.min()), int(x.max()))
+            mask = self._to_host(unique_mask_sorted(xp)[:n])
+        return mask
 
     def semi_join(self, keys: np.ndarray, bound_values: np.ndarray
                   ) -> np.ndarray:
@@ -561,8 +882,10 @@ class TorchOps(Ops):
         # membership is bounded by the real bound length, so no key value
         # (the sentinels included) can match a pad lane
         with self._lock:
-            kp = self._to_dev(keys)
-            bp = self._to_dev(bound)
+            kp = self._narrow_h2d(keys, n, INT64_MAX, int(keys.min()),
+                                  int(keys.max()))
+            bp = self._narrow_h2d(bound, m, INT64_MAX, int(bound.min()),
+                                  int(bound.max()))
             mask = self._to_host(_semi_join_n(kp, bp, m))
         return mask
 
@@ -673,12 +996,17 @@ class TorchOps(Ops):
             if e is not None and e.value.n < n:
                 old = e.value
                 n_old = old.n
+                delta = arr[n_old:]
                 prefix_ok = old.bounds_known() and (
                     assume_prefix or (
                         old._host is not None and
                         np.array_equal(arr[:n_old], old._host[:n_old])))
-                if prefix_ok and n <= old.data.shape[0]:
-                    delta = arr[n_old:]
+                if prefix_ok and old.codec is not None:
+                    h = self._extend_res_coded(key, version, old, arr, delta)
+                    if h is not None:
+                        return h
+                    self._res_counts["recode_rebuilds"] += 1
+                elif prefix_ok and n <= old.data.shape[0]:
                     buf = old.data.clone()  # the old handle stays valid
                     buf[n_old:n] = self._to_dev(delta)
                     h = DeviceCol(buf, n, self, min(int(delta.min()), old.lo),
@@ -686,8 +1014,104 @@ class TorchOps(Ops):
                     self.cache.put(key, version, h, buf.nbytes)
                     self.cache.note_extended(key)
                     return h
-            h = self._upload_locked(arr)
-        self.cache.put(key, version, h, h.data.nbytes)
+            h = self._upload_res_locked(arr)
+        self.cache.put(key, version, h, self._res_nbytes(h))
+        return h
+
+    def _res_nbytes(self, h: DeviceCol) -> int:
+        """Cache-accounted bytes of a resident handle: the *coded*
+        footprint (plus the dictionary).  A forced decode materializes a
+        transient int64 buffer on top; that working set is deliberately
+        not accounted (it dies with the handle)."""
+        if h.codec is None:
+            return getattr(h._data, "nbytes", 0)
+        if h.codec.kind == "rle":
+            return h.codes["v"].nbytes + h.codes["l"].nbytes
+        extra = (h.codec.values.nbytes
+                 if h.codec.values is not None else 0)
+        return h.codes.nbytes + extra
+
+    def _decode_thunk(self, codec, codes, dvals):
+        """Deferred device-side decode for a coded resident handle.  Runs
+        at most once, on the first ``.data`` access, and takes NO backend
+        lock (it can fire inside a locked region)."""
+        def thunk():
+            self._res_counts["decode_calls"] += 1
+            if codec.kind == "for":
+                return decode_for(codes, codec.ref)
+            if codec.kind == "dict":
+                return decode_dict(codes, dvals)
+            return decode_rle(codes["v"], codes["l"], codes["cap"])
+        return thunk
+
+    def _coded_handle(self, arr, codec, codes) -> DeviceCol:
+        dvals = self._dict_dev(codec) if codec.kind == "dict" else None
+        return DeviceCol(None, len(arr), self, int(arr.min()),
+                         int(arr.max()), host=arr, codec=codec, codes=codes,
+                         thunk=self._decode_thunk(codec, codes, dvals))
+
+    def _upload_res_locked(self, arr) -> DeviceCol:
+        """Resident-column upload: codes when an exact codec beats raw
+        int64 (RLE allowed: resident frontiers are often run-heavy
+        derived columns), raw otherwise.  The handle keeps the code
+        buffer and codec visible (``h.codes`` / ``h.codec``) so joins can
+        run in code domain; the int64 view decodes lazily on the device.
+        Caller holds the lock."""
+        n = len(arr)
+        codec = payload = None
+        if self.compress and n >= 16:
+            codec, payload = codecs.choose_codec(arr, allow_rle=True,
+                                                 min_n=16)
+        if codec is None:
+            return self._upload_locked(arr)
+        self._res_counts[codec.kind] += 1
+        cap = self._delta_bucket(n)
+        if codec.kind == "rle":
+            values, lengths = payload
+            rcap = self._delta_bucket(codec.nruns)
+            codes = {"v": self._to_dev(self._pad(values, rcap, 0)),
+                     "l": self._to_dev(self._pad(lengths, rcap, 0,
+                                                 np.int32)),
+                     "cap": cap}
+        else:
+            codes = self._to_dev(self._pad(payload, cap, 0, codec.dtype))
+        return self._coded_handle(arr, codec, codes)
+
+    def _extend_res_coded(self, key, version: int, old: DeviceCol,
+                          arr: np.ndarray, delta: np.ndarray
+                          ) -> DeviceCol | None:
+        """Code-domain tail extension of a coded resident column: only
+        the encoded tail ships, into copies of the code buffers (the old
+        handle stays valid).  A dictionary grows by append-only
+        extension (existing rank codes untouched, same ``cid``); RLE
+        appends run pairs (non-maximal runs are sound).  Returns ``None``
+        when the tail escapes the code domain or the capacity; the caller
+        recode-rebuilds.  Caller holds the lock."""
+        n, n_old = len(arr), old.n
+        codec = old.codec
+        enc = codecs.try_encode_delta(codec, delta)
+        if enc is None:
+            return None
+        new_codec, payload = enc
+        if codec.kind == "rle":
+            values, lengths = payload
+            r0, r1 = codec.nruns, new_codec.nruns
+            if n > old.codes["cap"] or r1 > old.codes["v"].shape[0]:
+                return None
+            codes = {"v": old.codes["v"].clone(),
+                     "l": old.codes["l"].clone(), "cap": old.codes["cap"]}
+            codes["v"][r0:r1] = self._to_dev(values)
+            codes["l"][r0:r1] = self._to_dev(lengths.astype(np.int32))
+        else:
+            if n > old.codes.shape[0]:
+                return None
+            if new_codec.did != codec.did:
+                self._res_counts["dict_extends"] += 1
+            codes = old.codes.clone()
+            codes[n_old:n] = self._to_dev(payload)
+        h = self._coded_handle(arr, new_codec, codes)
+        self.cache.put(key, version, h, self._res_nbytes(h))
+        self.cache.note_extended(key)
         return h
 
     def cross_join_h(self, lpay, rpay, n_l: int, n_r: int):
@@ -895,21 +1319,58 @@ class TorchOps(Ops):
             if hit is not None:
                 return hit
         hash_keys = algo == "HJ"
+        # code-domain join: when both key columns encode equal values to
+        # equal codes (same join token: same-table self-joins share
+        # dictionaries by content), join directly over the narrow code
+        # buffers and decode neither side.  Two dict columns with
+        # *different* dictionaries recode the smaller side on the device
+        # through a rank-to-rank crossmap (absent values map to the
+        # target's never-matching code).  Both are sound for HJ too:
+        # splitmix of a code is a consistent hash domain and the exact
+        # check compares codes, which is value equality under one encoding
+        lt = codecs.join_token(lkeys.codec)
+        rt = codecs.join_token(rkeys.codec)
+        code_join = lt is not None and lt == rt
+        cross_dict = (not code_join
+                      and lkeys.codec is not None
+                      and rkeys.codec is not None
+                      and lkeys.codec.kind == "dict"
+                      and rkeys.codec.kind == "dict")
         # a real left key equal to the right pad sentinel would match pad
-        # lanes (MJ only; the hash domain is checked inside the program)
-        bad = not hash_keys and (lkeys.lo is None or lkeys.lo == INT64_MIN)
+        # lanes (MJ only; the hash domain is checked inside the program).
+        # Codes cannot reach the sentinels (reserved headroom at both
+        # dtype ends), so the guard applies to raw keys only
+        bad = (not hash_keys and not code_join and not cross_dict
+               and (lkeys.lo is None or lkeys.lo == INT64_MIN))
         if not bad:
             cap = self._bucket(max(lkeys.n, rkeys.n))
             with self._lock:
-                cap_l = lkeys.data.shape[0]
-                cap_r = rkeys.data.shape[0]
+                if code_join:
+                    lkb, rkb = lkeys.codes, rkeys.codes
+                    self._res_counts["code_joins"] += 1
+                elif cross_dict:
+                    self._res_counts["cross_recodes"] += 1
+                    if lkeys.n <= rkeys.n:
+                        cmap = dict_crossmap(self._dict_dev(lkeys.codec),
+                                             self._dict_dev(rkeys.codec),
+                                             rkeys.codec.no_match_code)
+                        lkb, rkb = map_codes(cmap, lkeys.codes), rkeys.codes
+                    else:
+                        cmap = dict_crossmap(self._dict_dev(rkeys.codec),
+                                             self._dict_dev(lkeys.codec),
+                                             lkeys.codec.no_match_code)
+                        lkb, rkb = lkeys.codes, map_codes(cmap, rkeys.codes)
+                else:
+                    lkb, rkb = lkeys.data, rkeys.data
+                cap_l = lkb.shape[0]
+                cap_r = rkb.shape[0]
                 lp = tuple(self._fit_cap(p.data, cap_l) for p in lpay)
                 rp = tuple(self._fit_cap(p.data, cap_r) for p in rpay)
                 vl = tuple(self._fit_cap(a.data, cap_l) for a, _ in verify)
                 vr = tuple(self._fit_cap(b.data, cap_r) for _, b in verify)
                 while True:
                     louts, routs, stats = merge_join_gather_bounded(
-                        lkeys.data, rkeys.data, lkeys.n, rkeys.n, lp, rp,
+                        lkb, rkb, lkeys.n, rkeys.n, lp, rp,
                         vl, vr, out_cap=cap, hash_keys=hash_keys)
                     st = self._to_host(stats)
                     total, total0, bad = int(st[0]), int(st[1]), bool(st[2])
@@ -1006,14 +1467,24 @@ class TorchOps(Ops):
                        if use_cache else None)
                 if pkv is None:
                     if use_cache:
-                        # the ("pk", uid) column is shared with
-                        # ``join_pairs`` (engine dedup / retraction joins)
-                        kbuf = self._resident_column(
+                        # encode=False governs a *cold build* only: the
+                        # probe side arrives raw, so a fresh upload stays
+                        # raw too.  But the ("pk", uid) entry is shared
+                        # with ``join_pairs`` (engine dedup / retraction
+                        # joins), which dict-codes it under compression:
+                        # a hit or an append-extend of it comes back
+                        # *coded*, so decode to raw on the device first
+                        kb = self._resident_column(
                             ("pk", cache_uid), version, old_keys,
-                            INT64_MIN)["buf"]
-                        vbuf = self._resident_column(
-                            ("vals", cache_uid), version, old_vals,
-                            0)["buf"]
+                            INT64_MIN, encode=False)
+                        vb = self._resident_column(
+                            ("vals", cache_uid), version, old_vals, 0,
+                            encode=False)
+                        kraw = self._raw_colbuf(kb, old_keys, INT64_MIN)
+                        vraw = self._raw_colbuf(vb, old_vals, 0)
+                        cap_o = max(kraw.shape[0], vraw.shape[0])
+                        kbuf = self._fit_cap(kraw, cap_o)
+                        vbuf = self._fit_cap(vraw, cap_o)
                     else:
                         cap_o = self._bucket(len(old_keys))
                         kbuf = self._to_dev(
@@ -1049,9 +1520,19 @@ class TorchOps(Ops):
                 n_real = m
                 if use_cache:
                     self.cache.put(("permdev", cache_key), version,
-                                   {"sk": buf, "n": m}, buf.nbytes)
+                                   {"sk": buf, "n": m, "codec": None},
+                                   buf.nbytes)
             else:
                 buf, n_real = ent["sk"], ent["n"]
+                if ent["codec"] is not None:
+                    # the resident mirror holds narrow codes: encode the
+                    # probes into the same domain (absent values map to
+                    # ``no_match_code``, whose [lo, hi) is empty, as on
+                    # the raw path; only its ``lo`` differs, and callers
+                    # read ``lo`` only under a non-empty run) and widen
+                    # the mirror for the kernel
+                    probes = codecs.encode_probes(ent["codec"], probes)
+                    buf = widen(buf)
             pd = self._to_dev(self._pad(probes, self._bucket(n), INT64_MAX))
             lo, hi = probe_sorted(pd, buf)
             res = self._to_host(torch.stack([lo.to(torch.int64),
@@ -1059,7 +1540,84 @@ class TorchOps(Ops):
                                 .clamp(max=n_real))
         return res[0, :n].copy(), res[1, :n].copy()
 
+    def residency_stats(self) -> dict:
+        """Footprint of the compressed resident tier: actual (coded)
+        bytes vs what the same resident columns would occupy as raw
+        int64 buffers, plus the codec event counters.  Transient buffers
+        (probe uploads, join outputs) and derived mirrors are out of
+        scope: the ratio measures the *storage* tier the codecs
+        replace."""
+        out = {"resident_bytes_raw": 0, "resident_bytes_coded": 0,
+               "columns_raw": 0, "columns_coded": 0,
+               "codecs": dict(self._res_counts),
+               "compress": self.compress}
+        with self.cache._lock:
+            entries = [(k, e.value) for k, e in self.cache._entries.items()]
+        for key, v in entries:
+            fam = key[0] if isinstance(key, tuple) else None
+            if fam == "colbuf" and isinstance(v, dict) and "buf" in v:
+                coded = self._colbuf_nbytes(v)
+                raw = v["buf"].shape[0] * 8
+                out["columns_raw" if v["codec"] is None
+                    else "columns_coded"] += 1
+            elif fam == "rescol" and isinstance(v, DeviceCol):
+                coded = self._res_nbytes(v)
+                if v.codec is None:
+                    raw = coded
+                    out["columns_raw"] += 1
+                else:
+                    cap = (v.codes["cap"] if v.codec.kind == "rle"
+                           else v.codes.shape[0])
+                    raw = cap * 8
+                    out["columns_coded"] += 1
+            else:
+                continue
+            out["resident_bytes_raw"] += raw
+            out["resident_bytes_coded"] += coded
+        return out
+
     def sketch(self, col, *, cache_key=None, version: int | None = None):
-        raise NotImplementedError(
-            "the device cardinality sketch belongs to the demand slice "
-            "(ROADMAP A7)")
+        """Device cardinality sketch (see ``Ops.sketch``).  The sketch is
+        tiny (~1KB) and cached per ``(uid, data_version)``; a miss prefers
+        the *resident coded column* of the index build over a fresh
+        upload — decode on the device, histogram, three small downloads.
+        RLE columns and misses without a resident buffer upload the host
+        column transiently.  The column's sort runs through the port's
+        ``device_sort`` and its distinct count through the
+        ``unique_mask_sorted`` kernel, so ``sort_mode="sketch"`` runs that
+        kernel on the engine's path (``sketch_hist``)."""
+        col = np.asarray(col, np.int64)
+        n = len(col)
+        use_cache = cache_key is not None and version is not None
+        if n == 0:
+            return super().sketch(col)
+        with self._lock:
+            if use_cache:
+                hit = self.cache.get(("sketch", cache_key), version)
+                if hit is not None:
+                    return hit
+            buf = None
+            if use_cache:
+                ent = self.cache.get_any(
+                    ("colbuf", (cache_key[0], cache_key[1], ""), INT64_MAX))
+                cv = ent.value if ent is not None else None
+                if isinstance(cv, dict) and cv.get("n") == n and "buf" in cv:
+                    codec = cv["codec"]
+                    if codec is None:
+                        buf = cv["buf"]  # raw, pads already int64 max
+                    elif codec.kind == "for":
+                        buf = decode_for_n(cv["buf"], codec.ref, n,
+                                           INT64_MAX)
+                    elif codec.kind == "dict" and cv["dvals"] is not None:
+                        buf = decode_dict_n(cv["buf"], cv["dvals"], n)
+                        self._res_counts["decode_calls"] += 1
+            if buf is None:
+                buf = self._to_dev(self._pad(col, self._bucket(n), INT64_MAX))
+            hist, dhist, distinct = sketch_hist(buf, n, SKETCH_BUCKETS)
+            out = {"n": n, "distinct": int(self._to_host(distinct)),
+                   "hist": self._to_host(hist).astype(np.int64),
+                   "dhist": self._to_host(dhist).astype(np.int64)}
+            if use_cache:
+                self.cache.put(("sketch", cache_key), version, out,
+                               out["hist"].nbytes + out["dhist"].nbytes)
+        return out

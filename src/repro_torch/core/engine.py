@@ -82,7 +82,7 @@ class EngineConfig:
     tree_exec: str = "PF"         # PF (parallel level queries) | SF
     index_write: str = "PW"       # PW (parallel per-out-group) | SW
     unique: str = "SU"            # SU (sort-merge) | HU (incremental hash)
-    sort_mode: str = "sortkeys"   # sortkeys | fixed
+    sort_mode: str = "sortkeys"   # sortkeys | fixed | sketch
     backend: str = "torch"        # torch (CUDA) | torch-cpu | numpy
     device_pipeline: str = "auto"  # auto | on | off — handle-tier join core
     eval_mode: str = "auto"       # full | delta | auto — semi-naive rounds
@@ -93,8 +93,8 @@ class EngineConfig:
     max_workers: int = 8
     shards: int | str = 1         # 1 | N | "auto" — hash-partitioned engine
     result_cache: bool = True     # repeat-query (version-keyed) fast path
-    compress: bool | None = None  # device-resident column codecs (None and
-    #                               False: raw; True raises, ROADMAP A6)
+    compress: bool | None = None  # device-resident column codecs (None:
+    #                               REPRO_COMPRESS env, default on)
 
     @staticmethod
     def infer1(backend: str = "torch") -> "EngineConfig":

@@ -95,9 +95,15 @@ class Rank1Index(abc.ABC):
         keep)."""
         kw = {}
         if table is not None and comp is not None:
+            # codec hints for the compressed resident tier: attribute
+            # columns are low-cardinality (dictionary), id columns are
+            # densely interned ranges (frame of reference); value
+            # columns carry packed/float lanes — let the backend scan
             kw = {"cache_key": (table.uid, int(comp), variant),
                   "version": table.version, "n_dead": table.n_dead,
-                  "alive": table.alive if table.n_dead else None}
+                  "alive": table.alive if table.n_dead else None,
+                  "hint": {int(Component.ATTR): "dict",
+                           int(Component.ID): "for"}.get(int(comp))}
         skeys, perm = self.ops.sort_perm(col, **kw)
         return skeys.astype(col.dtype, copy=False), perm.astype(np.int32)
 

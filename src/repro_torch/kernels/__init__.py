@@ -2,9 +2,10 @@
 
 Each kernel lives in ``csrc/`` (CUDA C++ for ``sm_90a``, built by
 ``_build.py``) with a wrapper module beside the reference package's
-counterpart (``sortmerge/sortmerge.py``, ``mergejoin/mergejoin.py``).  A
-wrapper given a CUDA tensor launches its kernel or raises; given a CPU
-tensor it runs the kernel's plain PyTorch version.
+counterpart (``sortmerge/sortmerge.py``, ``mergejoin/mergejoin.py``,
+``uniquefilter/uniquefilter.py``).  A wrapper given a CUDA tensor
+launches its kernel or raises; given a CPU tensor it runs the kernel's
+plain PyTorch version.
 
 ``LAUNCHES`` counts wrapper calls that launched a kernel (plain-version
 calls on CPU tensors do not count).  ``FALLBACKS`` counts the paths that
@@ -15,7 +16,7 @@ redo of a join whose keys collide with a pad sentinel
 """
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
-            "merge_ranks": 0}
+            "merge_ranks": 0, "unique_mask_sorted": 0}
 FALLBACKS = {"stable_sort_perm": 0, "dedup_rows": 0, "join_host_redo": 0}
 
 

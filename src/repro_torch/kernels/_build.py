@@ -36,6 +36,9 @@ SOURCES = {
     "merge_ranks": ("merge_ranks.cu", {
         "merge_ranks_i64": "pipiipp",
     }),
+    "unique_mask": ("unique_mask.cu", {
+        "unique_mask_i64": "pipp",
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,9 +6,13 @@ run on seeded numpy inputs by both and compared exactly — join pairs and
 join rows as sets, since pair order is unspecified.  The fallbacks are
 forced too (width overflow, sentinel collisions, the capacity re-run),
 and the device-residency contract is asserted on the transfer counter: a
-re-evaluation sweep at fixed table versions costs zero transfers.
+re-evaluation sweep at fixed table versions costs zero transfers.  The
+``ops`` fixture keeps resident columns raw (``compress=False``), so the
+byte counts below are int64 lanes; the coded tier, the default, is held
+against the same oracles in ``test_torch_compression.py``.
 """
 
+import os
 import zlib
 
 import numpy as np
@@ -31,7 +35,7 @@ def rng(*salt):
 
 @pytest.fixture
 def ops():
-    return TorchOps(device="cpu", block=256)
+    return TorchOps(device="cpu", block=256, compress=False)
 
 
 def pair_set(li, ri):
@@ -46,7 +50,10 @@ def test_backend_names():
     assert BACKENDS == ("numpy", "torch", "torch-cpu")
     o = get_backend("torch-cpu")
     assert isinstance(o, TorchOps) and o.device.type == "cpu"
-    assert o.compress is False and o.prefer_handles
+    # the reference's default rule: compressed unless REPRO_COMPRESS says
+    # 0/false/off
+    on = os.environ.get("REPRO_COMPRESS") not in ("0", "false", "off")
+    assert o.compress is on and o.prefer_handles
     with pytest.raises(ValueError):
         get_backend("jax")
 
@@ -271,12 +278,15 @@ def test_dedup_rows(ops, wide):
 
 
 def test_unported_primitives_raise(ops):
-    with pytest.raises(NotImplementedError, match="B5"):
-        ops.unique_mask(np.arange(4))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ops.sketch(np.arange(4))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TorchOps(device="cpu", compress=True)
+    """Every primitive of ``Ops`` is ported now: ``unique_mask``,
+    ``sketch`` and the compressed tier run and match the oracle (only
+    the engine's demand and sharded modes still raise)."""
+    x = np.array([3, 3, 5, 9, 9, 9], np.int64)
+    np.testing.assert_array_equal(ops.unique_mask(x), HOST.unique_mask(x))
+    sk, want = ops.sketch(x), HOST.sketch(x)
+    assert (sk["n"], sk["distinct"]) == (want["n"], want["distinct"])
+    np.testing.assert_array_equal(sk["hist"], want["hist"])
+    assert TorchOps(device="cpu", compress=True).compress is True
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,8 @@ from repro_torch.kernels.sortmerge.sortmerge import (bitonic_sort,
                                                      bitonic_sort_plain,
                                                      merge_ranks,
                                                      merge_ranks_plain)
+from repro_torch.kernels.uniquefilter.uniquefilter import (
+    unique_mask_sorted, unique_mask_sorted_plain)
 
 
 def rng(*salt):
@@ -101,12 +103,33 @@ def test_cuda_merge_ranks_equals_plain(cuda, n, m, side_right):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 1000, 1 << 16, (1 << 21) + 3])
+def test_cuda_unique_mask_equals_plain(cuda, n):
+    r = rng("cuniq", n)
+    x = np.sort(r.randint(0, max(n // 8, 1), n)).astype(np.int64)
+    if n >= 4:  # the int64 extremes at both ends
+        x[0], x[-1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    xt = T(x).to(cuda)
+    before = kernels.LAUNCHES["unique_mask_sorted"]
+    got = unique_mask_sorted(xt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and got.shape == (n,)
+    assert torch.equal(got, unique_mask_sorted_plain(xt))
+    assert kernels.LAUNCHES["unique_mask_sorted"] == before + 1
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_bad_input(cuda):
     with pytest.raises(TypeError):
         bitonic_sort(torch.zeros(8, dtype=torch.float32, device=cuda))
     with pytest.raises(ValueError):
         probe_sorted(torch.zeros(8, dtype=torch.int64, device=cuda),
                      torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(TypeError):  # narrow codes widen before the kernel
+        unique_mask_sorted(torch.zeros(8, dtype=torch.int16, device=cuda))
+    with pytest.raises(ValueError):
+        unique_mask_sorted(torch.zeros(16, dtype=torch.int64,
+                                       device=cuda)[::2])
 
 
 KG = [("Schema", "A", "subClassOf", "B"), ("Schema", "B", "subClassOf", "C"),
@@ -123,7 +146,8 @@ def test_cuda_engine_equals_numpy(cuda, preset):
     """The engine on the ``torch`` backend launches the path's kernels and
     matches the ``numpy`` backend.  The facts go in two batches, so the
     AI index of ``query1`` merges the second into its sorted mirrors (an
-    LPIM index re-sorts only after four 4096-row pages of appends)."""
+    LPIM index re-sorts only after four 4096-row pages of appends).  The
+    unique-mask kernel runs under the sketch planner only (below)."""
     from repro_torch.core import EngineConfig, Fact, HiperfactEngine
     from repro_torch.core.conditions import cond
     from repro_torch.core.rulesets import rdfs_plus_rules
@@ -141,8 +165,57 @@ def test_cuda_engine_equals_numpy(cuda, preset):
         rows = {tuple(sorted(r.items()))
                 for r in e.query([cond("Data", "?a", "partOf", "?b")])}
         if backend == "torch":
-            skip = {"merge_ranks"} if preset == "infer1" else set()
+            skip = {"unique_mask_sorted"} | (
+                {"merge_ranks"} if preset == "infer1" else set())
             assert all(c > 0 for k, c in kernels.LAUNCHES.items()
                        if k not in skip)
         out.append((s.facts_inferred, rows, decoded_fact_checksum(e)))
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_mode", ["sortkeys", "sketch"])
+def test_cuda_compressed_engine_equals_numpy(cuda, sort_mode):
+    """The compressed tier on the card: ``query1`` with ``compress=True``
+    (and the device sketch planner) matches the ``numpy`` backend, keeps
+    its resident columns coded, and the sketch run goes through the
+    unique-mask kernel."""
+    from repro_torch.core import EngineConfig, Fact, HiperfactEngine
+    from repro_torch.core.conditions import cond
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.core.sharded import decoded_fact_checksum
+    out = []
+    for backend in ("torch", "numpy"):
+        cfg = EngineConfig.query1(backend=backend)
+        cfg.eval_mode, cfg.compress, cfg.sort_mode = "full", True, sort_mode
+        e = HiperfactEngine(cfg)
+        e.add_rules(rdfs_plus_rules())
+        kernels.reset_counts()
+        e.insert_facts([Fact(*f) for f in KG[:6]])
+        e.insert_facts([Fact(*f) for f in KG[6:]])
+        s = e.infer()
+        rows = {tuple(sorted(r.items()))
+                for r in e.query([cond("Data", "?a", "partOf", "?b")])}
+        if backend == "torch":
+            st = e.ops.residency_stats()
+            assert st["compress"] and st["columns_coded"] > 0
+            assert (kernels.LAUNCHES["unique_mask_sorted"] > 0) == (
+                sort_mode == "sketch")
+        out.append((s.facts_inferred, rows, decoded_fact_checksum(e)))
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_ops_unique_mask_and_sketch(cuda):
+    """``Ops.unique_mask`` and ``Ops.sketch`` on the card equal the numpy
+    backend's (a narrow upload, then the kernel)."""
+    from repro_torch.backend import fresh_backend
+    ops, host = fresh_backend("torch", compress=True), fresh_backend("numpy")
+    r = rng("cops")
+    x = np.sort(r.randint(0, 300, 5000)).astype(np.int64) + (1 << 40)
+    np.testing.assert_array_equal(ops.unique_mask(x), host.unique_mask(x))
+    col = r.randint(-50, 50, 3000).astype(np.int64) << 20
+    got, want = ops.sketch(col), host.sketch(col)
+    assert (got["n"], got["distinct"]) == (want["n"], want["distinct"])
+    np.testing.assert_array_equal(got["hist"], want["hist"])
+    np.testing.assert_array_equal(got["dhist"], want["dhist"])

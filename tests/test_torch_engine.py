@@ -166,13 +166,16 @@ def test_load_reference_state_rejects_mismatched_ids():
 
 
 def test_unported_modes_raise():
+    """Only demand evaluation (A7) and the sharded engine (A9) still
+    raise; compressed columns are on by default and take either flag."""
     with pytest.raises(NotImplementedError, match="A7"):
         HiperfactEngine(EngineConfig(backend="torch-cpu",
                                      eval_mode="demand"))
     with pytest.raises(NotImplementedError, match="A9"):
         HiperfactEngine(EngineConfig(backend="torch-cpu", shards=2))
-    with pytest.raises(NotImplementedError, match="A6"):
-        HiperfactEngine(EngineConfig(backend="torch-cpu", compress=True))
+    for flag in (True, False):
+        assert HiperfactEngine(EngineConfig(
+            backend="torch-cpu", compress=flag)).ops.compress is flag
     # "auto" resolves to one shard off the CUDA backend
     assert HiperfactEngine(EngineConfig(backend="torch-cpu",
                                         shards="auto")).ops.name == \

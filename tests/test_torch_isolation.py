@@ -74,7 +74,8 @@ def test_torch_backend_refuses_to_run_without_cuda(monkeypatch):
 def test_cuda_wrappers_never_take_the_plain_path():
     """A CUDA tensor must reach the kernel or raise: no wrapper catches
     an error and falls back to its plain version."""
-    for name in ("sortmerge/sortmerge.py", "mergejoin/mergejoin.py"):
+    for name in ("sortmerge/sortmerge.py", "mergejoin/mergejoin.py",
+                 "uniquefilter/uniquefilter.py"):
         src = (PKG / "kernels" / name).read_text()
         assert "try:" not in src and "except" not in src
 

@@ -5,8 +5,8 @@ network or search as its Pallas kernel, so the outputs must be *equal*,
 the key-value payload and the order of tied keys included.  Inputs are
 made with numpy from a seed and handed to both packages.  The composites
 (tagged stable sort, chained-sort dedup, the fused join in MJ and HJ,
-the two-run merge and the index-mirror merge) are held against the
-reference composites run with ``force_pallas=True,
+the two-run merge, the index-mirror merge and the unique filter) are held
+against the reference composites run with ``force_pallas=True,
 interpret=True``; join outputs are compared as row multisets because
 pair order is unspecified.  The CUDA kernels themselves are held
 against these plain versions on a card (``test_torch_cuda.py``).
@@ -35,6 +35,11 @@ from repro.kernels.sortmerge.sortmerge import bitonic_sort as pallas_sort
 from repro.kernels.sortmerge.sortmerge import (
     bitonic_sort_kv as pallas_sort_kv)
 from repro.kernels.sortmerge.sortmerge import merge_ranks as pallas_ranks
+from repro.kernels.uniquefilter.ops import (
+    unique_sorted_bounded as ref_unique_sorted)
+from repro.kernels.uniquefilter.ref import unique_mask_ref as jnp_unique_ref
+from repro.kernels.uniquefilter.uniquefilter import (
+    unique_mask_sorted as pallas_unique_mask)
 from repro_torch import kernels
 from repro_torch.kernels.mergejoin.mergejoin import (probe_sorted,
                                                      probe_sorted_plain)
@@ -56,6 +61,10 @@ from repro_torch.kernels.sortmerge.sortmerge import (bitonic_sort,
                                                      bitonic_sort_kv_plain,
                                                      bitonic_sort_plain,
                                                      merge_ranks)
+from repro_torch.kernels.uniquefilter.ops import unique_sorted_bounded
+from repro_torch.kernels.uniquefilter.ref import unique_mask_ref
+from repro_torch.kernels.uniquefilter.uniquefilter import (
+    unique_mask_sorted, unique_mask_sorted_plain)
 
 BLOCK = 256
 SIZES = [0, 1, 7, 64, 100, 1000, 2048]
@@ -171,6 +180,65 @@ def test_probe_empty_right_side():
     lo, hi = probe_sorted(T(np.arange(5, dtype=np.int64)),
                           T(np.empty(0, np.int64)))
     assert lo.tolist() == [0] * 5 and hi.tolist() == [0] * 5
+
+
+# -- unique mask -----------------------------------------------------------------
+
+
+def _sorted_with_ties(case: str, n: int) -> np.ndarray:
+    """Sorted int64 keys for the unique-mask cases: runs that straddle
+    every 256-lane block edge, and the int64 extremes."""
+    r = rng("uniq", case, n)
+    if case == "edges":  # runs of 3 centred on each block boundary
+        x = np.arange(n, dtype=np.int64) // 3 * 7
+        for e in range(256, n, 256):
+            x[e - 1:e + 2] = x[e - 1]
+        return np.sort(x)
+    if case == "extremes":
+        x = np.sort(r.randint(-5, 5, n)).astype(np.int64)
+        if n >= 6:
+            x[:2] = np.iinfo(np.int64).min
+            x[-3:] = np.iinfo(np.int64).max
+        return x
+    return np.sort(r.randint(0, max(n // 4, 1), n)).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["ties", "edges", "extremes"])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 700, 1024])
+def test_unique_mask_plain_equals_pallas(case, n):
+    """The plain version equals the Pallas kernel (interpret mode, 256-lane
+    blocks: ties across block edges, ``n`` not a multiple of the block,
+    ``n = 1``, the extremes — which are also the Pallas pad value) and the
+    independent stock-torch oracle."""
+    x = _sorted_with_ties(case, n)
+    got = unique_mask_sorted(T(x))  # CPU tensor: the plain version
+    assert got.dtype == torch.bool and got.shape == (n,)
+    want = np.asarray(pallas_unique_mask(jnp.asarray(x), block=BLOCK,
+                                         interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp_unique_ref(jnp.asarray(x))))
+    assert torch.equal(got, unique_mask_ref(T(x)))
+    assert torch.equal(got, unique_mask_sorted_plain(T(x)))
+
+
+def test_unique_mask_empty():
+    assert unique_mask_sorted(T(np.empty(0, np.int64))).shape == (0,)
+    assert unique_mask_ref(T(np.empty(0, np.int64))).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64])
+def test_unique_sorted_bounded_equals_reference(dtype):
+    """Sort + mask + compaction, narrow code buffers widened on entry."""
+    r = rng("usb", dtype.__name__)
+    x = r.randint(-100, 100, 300).astype(dtype)
+    vals, cnt = unique_sorted_bounded(T(x))
+    wvals, wcnt = ref_unique_sorted(jnp.asarray(x), force_pallas=True,
+                                    interpret=True)
+    assert int(cnt) == int(wcnt) == len(np.unique(x))
+    assert vals.dtype == torch.int64
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(wvals))
+    np.testing.assert_array_equal(vals.numpy()[:int(cnt)], np.unique(x))
 
 
 # -- composites vs the reference composites ------------------------------------
@@ -344,6 +412,7 @@ def test_cpu_tensors_launch_nothing():
                  T(np.arange(4, dtype=np.int64)))
     merge_ranks(T(np.arange(3, dtype=np.int64)),
                 T(np.arange(4, dtype=np.int64)))
+    unique_mask_sorted(T(np.arange(5, dtype=np.int64)))
     assert kernels.counts()["launches"] == {
         "bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
-        "merge_ranks": 0}
+        "merge_ranks": 0, "unique_mask_sorted": 0}
