@@ -20,15 +20,29 @@ Phases, each fatal on failure:
    full width against ``NumpyOps.unique_mask``.  Every kernel launched
    on that path; then one more raw and one more compressed ``infer1``
    run under ``torch.profiler`` for the device busy time;
-4. kernel phase: each kernel at the main path's shapes on the card (the
+4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4) and then
+   ``mamba2-1.3b`` (48 layers, d=2048, SSD) at full width with random
+   weights from ``--seed``, each served greedily: B = 2 prompts of
+   S = 2048 random tokens through ``prefill_fn`` (``max_len = S + 16``),
+   then 16 ``decode_fn`` steps.  The first decode step's logits must match ``hidden()`` over
+   the prompt plus that token (``3e-2 * max(1, scale)``, as the
+   reference's decode test), and the two forwards must have launched
+   ``flash_attention`` (yi) or ``ssd_intra`` (mamba2) once per layer
+   each;
+5. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shapes the engine phase
-   gave them), bit-compared with its plain PyTorch version, timed with
+   gave them, the LM kernels at the prefill shapes of the LM phase),
+   compared with its plain PyTorch version (bit-exact for the integer
+   kernels, within a stated tolerance for the float ones), timed with
    CUDA events (median of ``--reps`` runs, L2 flushed before each)
    beside the plain version, one PyTorch library call as a yardstick
-   and the bound;
-5. a ``{"kernels": [...]}`` line with every ported kernel's numbers and
-   the kernels still queued for later slices;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   where one exists, and the bound;
+6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
+   (``queued`` lists the kernels still to port: none);
+7. the last line: ``{"ok": true, "device": {...}}``.
+
+Float32 products run in full float32 (``allow_tf32`` off for matmuls
+and cuDNN) wherever a kernel is compared with its plain version.
 
 Nothing of JAX and nothing of the reference ``repro`` package is
 imported.
@@ -48,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM non-tensor-core float32 peak, the
 #                             table's only rate for scalar (non-matrix) ops
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 
 
 def fail(msg: str) -> None:
@@ -86,9 +101,10 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int,
+             ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -232,6 +248,8 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
         # operations: one compare per element
         "bound": bound_ms(9 * n, n)}
 
+    out.update(lm_kernel_rows(torch, rng, reps))
+
     # the launches above compare and time the kernels; they are not the
     # main path's, so they are dropped from the counts
     kernels.reset_counts()
@@ -239,9 +257,115 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
         b, by = row.pop("bound")
         row["bound_ms"], row["bound_by"] = b, by
         print(json.dumps({"kernel": name, **row}), flush=True)
-        if row["max_abs_err"] != 0:
+        if row["max_abs_err"] > row.get("tolerance", 0):
             fail(f"{name}: kernel and plain version differ "
                  f"(max abs err {row['max_abs_err']})")
+    return out
+
+
+def float_err(torch, got, want, tol: float, what: str) -> float:
+    """Largest |kernel - plain| of one float output; fails past ``tol``
+    or on a non-finite value."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} vs plain "
+             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    if err > tol:
+        fail(f"{what}: kernel and plain version differ by {err} > {tol}")
+    return err
+
+
+def lm_kernel_rows(torch, rng, reps: int) -> dict:
+    """The LM kernels at the LM phase's prefill shapes, against their
+    plain versions; plus a windowed and an unaligned attention case."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
+
+    dev = "cuda"
+    out = {}
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.tensor(rng.randn(*shape).astype(np.float32),
+                            device=dev).to(dtype)
+
+    # flash_attention: yi-6b's prefill, B=2, S=2048, Hq=32, Hkv=4, hd=128,
+    # bf16, causal; 2e-2 absolute in bf16 (tests/test_kernels.py)
+    B, S, Hq, Hkv, hd = 2, 2048, 32, 4, 128
+    q = normal(B, S, Hq, hd, dtype=torch.bfloat16)
+    k, v = (normal(B, S, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+    err = float_err(torch, flash_attention(q, k, v, causal=True),
+                    flash_attention_plain(q, k, v, causal=True), 2e-2,
+                    "flash_attention (yi prefill)")
+    # a windowed and an unaligned case (Sq != Skv, no block divides them)
+    side = []
+    for (b_, sq, skv, hq, hkv, d_, win, dt, tol) in (
+            (1, 300, 300, 8, 2, 128, 100, torch.bfloat16, 2e-2),
+            (2, 77, 200, 12, 1, 64, 0, torch.float32, 1e-5)):
+        qq = normal(b_, sq, hq, d_, dtype=dt)
+        kk, vv = (normal(b_, skv, hkv, d_, dtype=dt) for _ in range(2))
+        side.append(float_err(
+            torch, flash_attention(qq, kk, vv, causal=True, window=win),
+            flash_attention_plain(qq, kk, vv, causal=True, window=win), tol,
+            f"flash_attention ({sq}x{skv}, window {win}, {dt})"))
+    qt, kt_, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    band = S * (S + 1) // 2
+    out["flash_attention"] = {
+        "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
+        "max_abs_err": err, "tolerance": 2e-2,
+        "side_cases_max_abs_err": side,
+        "kernel_ms": time_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True), reps),
+        "plain_ms": time_ms(
+            torch, lambda: flash_attention_plain(q, k, v, causal=True), reps),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt_, vt, is_causal=True, enable_gqa=True), reps),
+        "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+        # bytes: q, k, v read once, out written once (bf16); operations:
+        # the causal band's two products (QK^T and PV), 2 FLOPs per
+        # multiply-add, at the bf16 tensor-core peak (the inputs' type)
+        "bound": bound_ms(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
+                          4 * B * Hq * hd * band, BF16_OPS_PER_S)}
+
+    # ssd_intra: mamba2-1.3b's prefill, b=2, nc=8, Q=256, nh=64, hp=64,
+    # N=128, float32; 1e-4 of max|y| and of max|state| (sums over Q and N
+    # reassociated)
+    b, nc, Q, nh, hp, N = 2, 8, 256, 64, 64, 128
+    dlog = -np.abs(rng.randn(b, nc, Q, nh)).astype(np.float32) * 0.05
+    cum = torch.tensor(np.cumsum(dlog, axis=2), device=dev)
+    u = normal(b, nc, Q, nh, hp)
+    Bm, Cm = normal(b, nc, Q, N), normal(b, nc, Q, N)
+    y, st = ssd_intra(cum, u, Bm, Cm)
+    yp, sp = ssd_intra_plain(cum, u, Bm, Cm)
+    tols = [1e-4 * max(1.0, float(w.abs().max())) for w in (yp, sp)]
+    errs = [float_err(torch, g, w, t, f"ssd_intra ({what})")
+            for g, w, t, what in ((y, yp, tols[0], "y"),
+                                  (st, sp, tols[1], "state"))]
+    tri = Q * (Q + 1) // 2
+    out["ssd_intra"] = {
+        "shape": [b, nc, Q, nh, hp, N], "dtype": "float32",
+        "max_abs_err": max(errs), "tolerance": max(tols),
+        "kernel_ms": time_ms(torch, lambda: ssd_intra(cum, u, Bm, Cm), reps),
+        "plain_ms": time_ms(torch, lambda: ssd_intra_plain(cum, u, Bm, Cm),
+                            reps),
+        "library_ms": None, "library_call": None,
+        # bytes: cum, u, B, C read once, y and the states written once;
+        # operations the function needs (2 per multiply-add): the gram
+        # C.B^T's lower triangle once per (b, c), and per head the decay
+        # (exp of a difference, times the gram), M u over the triangle,
+        # the state weights and the state product u^T B; float32 peak
+        # without tensor cores, as the function is float32
+        "bound": bound_ms(
+            4 * (b * nc * Q * nh + 2 * b * nc * Q * nh * hp
+                 + 2 * b * nc * Q * N + b * nc * nh * hp * N),
+            b * nc * (tri * N * 2 + nh * (tri * 2 + tri * hp * 2 + Q * hp
+                                           + Q * hp * N * 2)))}
     return out
 
 
@@ -321,7 +445,7 @@ def engine_phase(torch, scale: int, seed: int):
                       "checksum": ref_sum,
                       "seconds": time.perf_counter() - t0}), flush=True)
 
-    launches = {name: 0 for name in kernels.LAUNCHES}
+    launches = {name: 0 for name in kernels.ENGINE_KERNELS}
     shapes, undo = merge_shapes(torch_ops)
     for preset, overrides in RUNS:
         e = HiperfactEngine(engine_config(preset, overrides))
@@ -368,8 +492,8 @@ def engine_phase(torch, scale: int, seed: int):
                "checksum_equal": checksum == ref_sum,
                "rows_equal": rows == ref_rows}
         print(json.dumps(rec), flush=True)
-        for name, c in counts["launches"].items():
-            launches[name] += c
+        for name in launches:
+            launches[name] += counts["launches"][name]
         label = f"{preset} {overrides}"
         if stats.facts_inferred != ref_stats.facts_inferred:
             fail(f"{label}: facts_inferred {stats.facts_inferred} != "
@@ -434,13 +558,23 @@ OUR_KERNELS = ("tile_passes", "cross_pass", "probe_kernel", "rank_kernel",
                "unique_mask_kernel")
 
 
+def device_events(prof) -> dict:
+    """{kernel name: (device us, calls)} of a profile's device-side events
+    (kernels, memcpys): a host op's device time repeats the time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
+    return {ev.key: (ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
 def device_profile(torch, facts, preset: str, overrides: dict) -> None:
     """Device busy time of one more fresh run of ``preset`` (load, infer,
     queries) under ``torch.profiler``: the sum of device kernel times,
     the share spent in the port's own CUDA kernels, and the top kernels.
     The profiler's overhead lengthens ``wall_s``, so ``idle_share`` is an
     upper bound; the timed runs above are the end-to-end numbers."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import HiperfactEngine
@@ -458,12 +592,7 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     e.ops.cache.clear()
-    # device-side events only (kernels, memcpys): a host op's device time
-    # repeats the time of the kernels it launched
-    per = {ev.key: (ev.self_device_time_total, ev.count)
-           for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA
-           and ev.self_device_time_total > 0}
+    per = device_events(prof)
     busy = sum(us for us, _ in per.values()) / 1e6
     ours = sum(us for k, (us, _) in per.items()
                if any(n in k for n in OUR_KERNELS)) / 1e6
@@ -475,6 +604,178 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
         "device_busy_s": busy if busy else "not measured",
         "idle_share": 1 - busy / wall if busy else "not measured",
         "own_kernels_s": ours, "copies_s": copies,
+        "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                               for k, (us, c) in top]}), flush=True)
+
+
+# (config, the kernel its forward runs once per layer) of the LM phase
+LM_MODELS = [("yi-6b", "flash_attention"), ("mamba2-1.3b", "ssd_intra")]
+# prompts, prompt tokens (> 1024 puts yi's attention on the kernel's
+# branch; 8 chunks of 256 for mamba2) and greedy decode steps
+LM_BATCH, LM_SEQ, LM_STEPS = 2, 2048, 16
+
+
+def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
+    """Greedy serving of each LM at full width; returns each LM kernel's
+    launches over its model's run."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, init_params, param_bytes,
+                                    param_count)
+
+    launches = {}
+    for arch, kernel in LM_MODELS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        spec = model.spec()
+        t0 = time.perf_counter()
+        params = init_params(spec, seed)
+        if cfg.family == "ssm":
+            seed_conv_taps(torch, params, seed)
+        torch.cuda.synchronize()
+        print(json.dumps({"lm": arch, "layers": cfg.n_layers,
+                          "d_model": cfg.d_model, "dtype": cfg.dtype,
+                          "params": param_count(spec),
+                          "param_gb": param_bytes(spec) / 1e9,
+                          "init_s": time.perf_counter() - t0}), flush=True)
+        prompts = torch.tensor(np.random.RandomState(seed).randint(
+            0, cfg.vocab, (batch, seq)).astype(np.int32), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_fn(params, prompts, seq + steps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1)
+        first = None
+        step_ms = []
+        for i in range(steps):
+            ts = time.perf_counter()
+            step, cache = model.decode_fn(params, tok, cache)
+            first = step if first is None else first
+            tok = step.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        t2 = time.perf_counter()
+        # consistency: hidden() over the prompt and the first greedy
+        # token, against the first decode step's logits
+        ext = torch.cat([prompts, logits.argmax(-1)[:, None].to(
+            prompts.dtype)], dim=1)
+        with torch.no_grad():
+            h, _ = model.hidden(params, ext)
+            ref = model._logits(params, h[:, seq, :])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = kernels.counts()["launches"]  # ... and ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lens = cache["lens"].tolist()
+        err = float((first.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        bound = 3e-2 * max(1.0, scale)
+        del cache
+        err32, scale32 = f32_consistency(torch, cfg, params, ext, seq)
+        bound32 = 1e-3 * max(1.0, scale32)
+        finite = bool(torch.isfinite(logits).all()
+                      and torch.isfinite(first).all())
+        print(json.dumps({
+            "lm": arch, "batch": batch, "prompt": seq, "decode_steps": steps,
+            "prefill_s": t1 - t0,
+            "decode_ms_per_token": (t2 - t1) / steps * 1e3,
+            "decode_ms_first": step_ms[0],
+            "decode_ms_median": statistics.median(step_ms),
+            "decode_ms_steps": step_ms,
+            "generated_tokens_per_s": batch * steps / (t2 - t1),
+            "forward_s": t3 - t2,
+            "peak_device_gb": peak_gb,
+            "logits_shape": list(logits.shape), "finite": finite,
+            "consistency_err": err, "consistency_bound": bound,
+            "f32_consistency_err": err32, "f32_consistency_bound": bound32,
+            "cache_lens": lens,
+            "launches": {k: counts[k] for _, k in LM_MODELS}}), flush=True)
+        if not finite or list(logits.shape) != [batch, cfg.vocab]:
+            fail(f"{arch}: logits {list(logits.shape)}, finite={finite}")
+        if err > bound or err32 > bound32:
+            fail(f"{arch}: decode logits differ from the forward by {err} "
+                 f"(bound {bound}; float32: {err32}, bound {bound32})")
+        if lens != [seq + steps] * batch:
+            fail(f"{arch}: cache lens {lens}")
+        # two forwards ran (the prefill and the check), each once per layer
+        want = {k: (2 * cfg.n_layers if k == kernel else 0)
+                for _, k in LM_MODELS}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"{arch}: LM kernel launches {got}, expected {want}")
+        launches[kernel] = counts[kernel]
+        del logits, first, step, h, ref
+        lm_profile(torch, arch, model, params, prompts)
+        del params, model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def seed_conv_taps(torch, params, seed: int) -> None:
+    """Draw the SSM blocks' conv taps and bias from the seed as upstream
+    Mamba-2 initializes them (``nn.Conv1d``'s default for a depthwise
+    conv of width W: uniform in +-1/sqrt(W)).  The reference's spec
+    initializes them to zeros, which makes every SSM block of a fresh
+    model output exactly 0: the SSD path would carry no signal and the
+    consistency check would be vacuous."""
+    ssm = params["blocks"]["b0"]["ssm"]
+    bound = 1.0 / ssm["conv_w"].shape[1] ** 0.5   # [layers, W, channels]
+    gen = torch.Generator(device=ssm["conv_w"].device).manual_seed(seed + 1)
+    for name in ("conv_w", "conv_b"):
+        ssm[name].uniform_(-bound, bound, generator=gen)
+
+
+def f32_consistency(torch, cfg, params, ext, seq: int) -> tuple:
+    """The consistency check again with the same weights in float32
+    (``cfg.dtype`` only sets the compute type): decode after a prefill of
+    ``seq`` tokens against ``hidden()`` over ``seq + 1``.  In float32 the
+    two differ by reassociation only, so a fault that the bf16 bound
+    could hide shows here.  Returns (max abs error, max |logit|)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    with torch.no_grad():
+        _, cache = model.prefill_fn(params, ext[:, :seq], seq + 1)
+        step, _ = model.decode_fn(params, ext[:, seq], cache)
+        h, _ = model.hidden(params, ext)
+        ref = model._logits(params, h[:, seq, :])
+    return (float((step - ref).abs().max()), float(ref.abs().max()))
+
+
+def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
+    """Device time of ``steps`` decode steps under ``torch.profiler``,
+    against a fresh prefill of the prompts' first 256 tokens (outside
+    the window): the device busy share of a decode step and its top
+    kernels.  The profiler's overhead lengthens ``wall_s``, so
+    ``idle_share`` is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    short = prompts[:, :256]
+    logits, cache = model.prefill_fn(params, short, short.shape[1] + steps)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step, cache = model.decode_fn(params, tok, cache)
+            tok = step.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = device_events(prof)
+    busy = sum(us for us, _ in per.values()) / 1e6
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    print(json.dumps({
+        "lm_profile": arch, "decode_steps": steps, "wall_s": wall,
+        "device_busy_s": busy if busy else "not measured",
+        "idle_share": 1 - busy / wall if busy else "not measured",
+        "device_kernels": sum(c for _, c in per.values()),
         "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                                for k, (us, c) in top]}), flush=True)
 
@@ -495,13 +796,14 @@ KERNELS = [
     {"name": "unique_mask_sorted", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/unique_mask.cu",
      "replaces": "src/repro/kernels/uniquefilter/uniquefilter.py:32"},
-]
-QUEUED = [
-    {"name": "flash_attention", "status": "queued", "roadmap": "B6",
+    {"name": "flash_attention", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
-    {"name": "ssd_intra", "status": "queued", "roadmap": "B7",
+    {"name": "ssd_intra", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
      "replaces": "src/repro/kernels/ssd/ssd.py:53"},
 ]
+QUEUED: list = []  # every Pallas kernel of the reference has a port
 
 
 def main() -> int:
@@ -526,6 +828,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    # float32 products in full float32 wherever kernels meet plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -534,6 +839,8 @@ def main() -> int:
                       "per_library_s": secs}), flush=True)
 
     launches, merge_shape = engine_phase(torch, args.scale, args.seed)
+    launches.update(lm_phase(torch, args.seed, LM_BATCH, LM_SEQ,
+                             LM_STEPS))
     rows = kernel_phase(torch, args.seed, args.reps, merge_shape)
 
     line = []

@@ -3,7 +3,8 @@
 Each kernel lives in ``csrc/`` (CUDA C++ for ``sm_90a``, built by
 ``_build.py``) with a wrapper module beside the reference package's
 counterpart (``sortmerge/sortmerge.py``, ``mergejoin/mergejoin.py``,
-``uniquefilter/uniquefilter.py``).  A wrapper given a CUDA tensor
+``uniquefilter/uniquefilter.py``, ``flash_attention/flash_attention.py``,
+``ssd/ssd.py``).  A wrapper given a CUDA tensor
 launches its kernel or raises; given a CPU tensor it runs the kernel's
 plain PyTorch version.
 
@@ -16,7 +17,11 @@ redo of a join whose keys collide with a pad sentinel
 """
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
-            "merge_ranks": 0, "unique_mask_sorted": 0}
+            "merge_ranks": 0, "unique_mask_sorted": 0,
+            "flash_attention": 0, "ssd_intra": 0}
+# the fact engine's kernels; the LM serving path's are the other two
+ENGINE_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
+                  "merge_ranks", "unique_mask_sorted")
 FALLBACKS = {"stable_sort_perm": 0, "dedup_rows": 0, "join_host_redo": 0}
 
 

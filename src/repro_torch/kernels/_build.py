@@ -39,6 +39,14 @@ SOURCES = {
     "unique_mask": ("unique_mask.cu", {
         "unique_mask_i64": "pipp",
     }),
+    "flash_attention": ("flash_attention.cu", {
+        "flash_attention_f32": "pppp" + "i" * 9 + "p",
+        "flash_attention_bf16": "pppp" + "i" * 9 + "p",
+        "flash_attention_f16": "pppp" + "i" * 9 + "p",
+    }),
+    "ssd_intra": ("ssd_intra.cu", {
+        "ssd_intra_f32": "pppppp" + "i" * 6 + "p",
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

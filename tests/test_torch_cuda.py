@@ -2,9 +2,12 @@
 
 Each test carries the ``cuda`` marker and skips where torch sees no CUDA
 device; on a card (``python -m pytest -m cuda tests/test_torch_cuda.py``)
-each kernel must give bit-identical output to its plain version — the
-plain versions are held against the reference Pallas kernels on the CPU
-by ``test_torch_kernels.py``.  This file imports nothing of JAX, so it
+each integer kernel must give bit-identical output to its plain version
+and each float kernel must agree with its plain version within a stated
+tolerance — the plain versions are held against the reference Pallas
+kernels on the CPU by ``test_torch_kernels.py`` and
+``test_torch_lm_kernels.py``.  The LM models' prefill and decode on the
+card are held against the same models' CPU runs.  This file imports nothing of JAX, so it
 runs where only the port is installed.
 """
 
@@ -47,6 +50,9 @@ def keys_with_extremes(r, n, dtype):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    # the plain versions' float32 products in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -167,8 +173,8 @@ def test_cuda_engine_equals_numpy(cuda, preset):
         if backend == "torch":
             skip = {"unique_mask_sorted"} | (
                 {"merge_ranks"} if preset == "infer1" else set())
-            assert all(c > 0 for k, c in kernels.LAUNCHES.items()
-                       if k not in skip)
+            assert all(kernels.LAUNCHES[k] > 0
+                       for k in kernels.ENGINE_KERNELS if k not in skip)
         out.append((s.facts_inferred, rows, decoded_fact_checksum(e)))
     assert out[0] == out[1]
 
@@ -219,3 +225,126 @@ def test_cuda_ops_unique_mask_and_sketch(cuda):
     assert (got["n"], got["distinct"]) == (want["n"], want["distinct"])
     np.testing.assert_array_equal(got["hist"], want["hist"])
     np.testing.assert_array_equal(got["dhist"], want["dhist"])
+
+
+# -- the LM kernels ------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,hd", [
+    (1, 1, 1, 1, 1, 16), (2, 77, 77, 8, 2, 32), (1, 20, 91, 4, 1, 64),
+    (2, 130, 130, 32, 4, 128), (1, 50, 13, 2, 2, 16), (1, 33, 33, 12, 1, 16),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
+                                           causal, window, dtype):
+    """Ragged lengths, Sq != Skv both ways, groups of 1 to 12 heads;
+    float32 within 1e-5 (sums reassociated), bf16 and fp16 within an
+    ulp of the output (2e-2, 4e-3)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    r = rng("cflash", B, Sq, Skv, Hq, hd)
+    q, k, v = (T(r.randn(B, S, H, hd).astype(np.float32)).to(cuda, dtype)
+               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,Q,nh,hp,N", [
+    (1, 2, 32, 2, 16, 8), (2, 3, 64, 4, 32, 16), (1, 1, 70, 3, 12, 20),
+    (1, 2, 256, 4, 64, 128),
+])
+def test_cuda_ssd_intra_equals_plain(cuda, b, nc, Q, nh, hp, N):
+    """Within 1e-4 of max|y| and max|state| (sums over Q and N
+    reassociated)."""
+    from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
+    r = rng("cssd", b, nc, Q, nh, hp, N)
+    dlog = -np.abs(r.randn(b, nc, Q, nh)) * 0.05
+    ins = [np.cumsum(dlog, axis=2), r.randn(b, nc, Q, nh, hp),
+           r.randn(b, nc, Q, N), r.randn(b, nc, Q, N)]
+    cum, u, B, C = (T(a.astype(np.float32)).to(cuda) for a in ins)
+    before = kernels.LAUNCHES["ssd_intra"]
+    y, st = ssd_intra(cum, u, B, C)
+    yp, sp = ssd_intra_plain(cum, u, B, C)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ssd_intra"] == before + 1
+    for got, want in ((y, yp), (st, sp)):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_cuda_lm_wrappers_reject_bad_input(cuda):
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.ssd.ssd import ssd_intra
+    q = torch.zeros(1, 4, 2, 16, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError):  # head dim over 128
+        z = torch.zeros(1, 4, 2, 256, device=cuda)
+        flash_attention(z, z, z)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                        q)
+    x = torch.zeros(1, 1, 8, 2, device=cuda)
+    with pytest.raises(TypeError):
+        ssd_intra(x.double(), torch.zeros(1, 1, 8, 2, 4, device=cuda),
+                  torch.zeros(1, 1, 8, 3, device=cuda),
+                  torch.zeros(1, 1, 8, 3, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b"])
+def test_cuda_model_equals_cpu(cuda, arch, dtype):
+    """A smoke model's prefill (a 40-token prompt: the attention kernel's
+    branch, whole SSD chunks plus a pad) and two decode steps on the
+    card, against the same weights on the CPU: float32 within 1e-4 of
+    the logits' scale, bfloat16 within 3e-2 * max(1, scale)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+    p_cpu = init_params(cpu.spec(), 0, device="cpu")
+    if cfg.family == "ssm":  # zero taps at init: every block would give 0
+        ssm = p_cpu["blocks"]["b0"]["ssm"]
+        r = rng("ctaps")
+        for k in ("conv_w", "conv_b"):
+            ssm[k] = T((r.randn(*ssm[k].shape) * 0.5).astype(np.float32))
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = T(rng("cmodel", arch).randint(0, cfg.vocab, (2, 42)).astype(
+        np.int32))
+    kernels.reset_counts()
+    outs = []
+    for model, params, dev in ((gpu, p_gpu, cuda), (cpu, p_cpu, "cpu")):
+        t = toks.to(dev)
+        logits, cache = model.prefill_fn(params, t[:, :40], 48)
+        steps = [logits]
+        for i in (40, 41):
+            logits, cache = model.decode_fn(params, t[:, i], cache)
+            steps.append(logits)
+        outs.append([x.float().cpu() for x in steps])
+    torch.cuda.synchronize()
+    name = "flash_attention" if cfg.family == "dense" else "ssd_intra"
+    assert kernels.LAUNCHES[name] == cfg.n_layers  # one prefill forward
+    for got, want in zip(*outs):
+        scale = float(want.abs().max())
+        bound = 1e-4 * scale if dtype == "float32" else 3e-2 * max(1.0,
+                                                                    scale)
+        assert float((got - want).abs().max()) <= bound
