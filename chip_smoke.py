@@ -27,18 +27,21 @@ Phases, each fatal on failure:
    then 16 ``decode_fn`` steps.  The first decode step's logits must match ``hidden()`` over
    the prompt plus that token (``3e-2 * max(1, scale)``, as the
    reference's decode test), and the two forwards must have launched
-   ``flash_attention`` (yi) or ``ssd_intra`` (mamba2) once per layer
-   each;
+   ``flash_attention`` (yi, every launch on the tensor-core ``wgmma``
+   route) or ``ssd_intra`` (mamba2) once per layer each;
 5. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shapes the engine phase
    gave them, the LM kernels at the prefill shapes of the LM phase),
    compared with its plain PyTorch version (bit-exact for the integer
-   kernels, within a stated tolerance for the float ones), timed with
+   kernels, within a stated tolerance for the float ones; attention on
+   both of its routes), timed with
    CUDA events (median of ``--reps`` runs, L2 flushed before each)
    beside the plain version, one PyTorch library call as a yardstick
    where one exists, and the bound;
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
-   (``queued`` lists the kernels still to port: none);
+   (``queued`` lists the kernels still to port: none); attention's row
+   times the ``wgmma`` route beside the CUDA-core kernel on the same
+   inputs (``simt_ms``) and counts the LM phase's launches by route;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
@@ -283,8 +286,9 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, launch_route)
     from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
 
     dev = "cuda"
@@ -294,33 +298,56 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         return torch.tensor(rng.randn(*shape).astype(np.float32),
                             device=dev).to(dtype)
 
+    def attention_case(b_, sq, skv, hq, hkv, d_, win, dt, tol, route):
+        """One attention comparison on the route it must take."""
+        qq = normal(b_, sq, hq, d_, dtype=dt)
+        kk, vv = (normal(b_, skv, hkv, d_, dtype=dt) for _ in range(2))
+        before = kernels.LAUNCHES["flash_attention_wgmma"]
+        what = (f"flash_attention ({b_}x{sq}x{skv}, {hq}/{hkv} heads, hd "
+                f"{d_}, window {win}, {dt})")
+        err = float_err(
+            torch, flash_attention(qq, kk, vv, causal=True, window=win),
+            flash_attention_plain(qq, kk, vv, causal=True, window=win), tol,
+            what)
+        took = ("wgmma" if kernels.LAUNCHES["flash_attention_wgmma"] > before
+                else "simt")
+        if took != route:
+            fail(f"{what}: took the {took} route, expected {route}")
+        return {"shape": [b_, sq, skv, hq, hkv, d_], "window": win,
+                "dtype": str(dt).replace("torch.", ""), "route": took,
+                "max_abs_err": err, "tolerance": tol}
+
     # flash_attention: yi-6b's prefill, B=2, S=2048, Hq=32, Hkv=4, hd=128,
-    # bf16, causal; 2e-2 absolute in bf16 (tests/test_kernels.py)
+    # bf16, causal, on the tensor-core route; 2e-2 absolute in bf16
+    # (tests/test_kernels.py)
     B, S, Hq, Hkv, hd = 2, 2048, 32, 4, 128
     q = normal(B, S, Hq, hd, dtype=torch.bfloat16)
     k, v = (normal(B, S, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+    before = kernels.LAUNCHES["flash_attention_wgmma"]
     err = float_err(torch, flash_attention(q, k, v, causal=True),
                     flash_attention_plain(q, k, v, causal=True), 2e-2,
                     "flash_attention (yi prefill)")
-    # a windowed and an unaligned case (Sq != Skv, no block divides them)
-    side = []
-    for (b_, sq, skv, hq, hkv, d_, win, dt, tol) in (
-            (1, 300, 300, 8, 2, 128, 100, torch.bfloat16, 2e-2),
-            (2, 77, 200, 12, 1, 64, 0, torch.float32, 1e-5)):
-        qq = normal(b_, sq, hq, d_, dtype=dt)
-        kk, vv = (normal(b_, skv, hkv, d_, dtype=dt) for _ in range(2))
-        side.append(float_err(
-            torch, flash_attention(qq, kk, vv, causal=True, window=win),
-            flash_attention_plain(qq, kk, vv, causal=True, window=win), tol,
-            f"flash_attention ({sq}x{skv}, window {win}, {dt})"))
+    if kernels.LAUNCHES["flash_attention_wgmma"] != before + 1:
+        fail("flash_attention (yi prefill) did not take the wgmma route")
+    # a windowed case, Sq != Skv with ragged tails (no tile divides them)
+    # on both routes, and fp16 at yi's shape (4e-3: an ulp of the output)
+    side = [attention_case(*c) for c in (
+        (1, 300, 300, 8, 2, 128, 100, torch.bfloat16, 2e-2, "wgmma"),
+        (2, 77, 200, 12, 1, 64, 0, torch.float32, 1e-5, "simt"),
+        (2, 77, 200, 12, 1, 64, 0, torch.bfloat16, 2e-2, "wgmma"),
+        (B, S, S, Hq, Hkv, hd, 0, torch.float16, 4e-3, "wgmma"))]
     qt, kt_, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     band = S * (S + 1) // 2
     out["flash_attention"] = {
         "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
-        "max_abs_err": err, "tolerance": 2e-2,
-        "side_cases_max_abs_err": side,
+        "route": "wgmma", "max_abs_err": err, "tolerance": 2e-2,
+        "side_cases": side,
         "kernel_ms": time_ms(
             torch, lambda: flash_attention(q, k, v, causal=True), reps),
+        # the CUDA-core kernel (the float32 route) on the same bf16
+        # inputs: the time the tensor-core route replaces
+        "simt_ms": time_ms(
+            torch, lambda: launch_route("simt", q, k, v, causal=True), reps),
         "plain_ms": time_ms(
             torch, lambda: flash_attention_plain(q, k, v, causal=True), reps),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -608,8 +635,11 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
                                for k, (us, c) in top]}), flush=True)
 
 
-# (config, the kernel its forward runs once per layer) of the LM phase
-LM_MODELS = [("yi-6b", "flash_attention"), ("mamba2-1.3b", "ssd_intra")]
+# (config, the launch counts its forward raises once per layer) of the LM
+# phase: yi's attention must take the tensor-core route every time
+LM_MODELS = [("yi-6b", ("flash_attention", "flash_attention_wgmma")),
+             ("mamba2-1.3b", ("ssd_intra",))]
+LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
 # prompts, prompt tokens (> 1024 puts yi's attention on the kernel's
 # branch; 8 chunks of 256 for mamba2) and greedy decode steps
 LM_BATCH, LM_SEQ, LM_STEPS = 2, 2048, 16
@@ -626,7 +656,7 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
                                     param_count)
 
     launches = {}
-    for arch, kernel in LM_MODELS:
+    for arch, own in LM_MODELS:
         cfg = get_config(arch)
         model = build_model(cfg)
         spec = model.spec()
@@ -693,7 +723,7 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
             "consistency_err": err, "consistency_bound": bound,
             "f32_consistency_err": err32, "f32_consistency_bound": bound32,
             "cache_lens": lens,
-            "launches": {k: counts[k] for _, k in LM_MODELS}}), flush=True)
+            "launches": {k: counts[k] for k in LM_COUNTS}}), flush=True)
         if not finite or list(logits.shape) != [batch, cfg.vocab]:
             fail(f"{arch}: logits {list(logits.shape)}, finite={finite}")
         if err > bound or err32 > bound32:
@@ -702,12 +732,11 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
         if lens != [seq + steps] * batch:
             fail(f"{arch}: cache lens {lens}")
         # two forwards ran (the prefill and the check), each once per layer
-        want = {k: (2 * cfg.n_layers if k == kernel else 0)
-                for _, k in LM_MODELS}
+        want = {k: (2 * cfg.n_layers if k in own else 0) for k in LM_COUNTS}
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"{arch}: LM kernel launches {got}, expected {want}")
-        launches[kernel] = counts[kernel]
+        launches.update({k: counts[k] for k in own})
         del logits, first, step, h, ref
         lm_profile(torch, arch, model, params, prompts)
         del params, model
@@ -797,7 +826,9 @@ KERNELS = [
      "source": "src/repro_torch/kernels/csrc/unique_mask.cu",
      "replaces": "src/repro/kernels/uniquefilter/uniquefilter.py:32"},
     {"name": "flash_attention", "route": "cuda",
-     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+     "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                 "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     {"name": "ssd_intra", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
@@ -846,12 +877,18 @@ def main() -> int:
     line = []
     for k in KERNELS:
         r = rows[k["name"]]
+        extra = {}
+        if k["name"] == "flash_attention":  # launches by route, and the
+            n_tc = launches["flash_attention_wgmma"]  # CUDA-core time
+            extra = {"routes": {"wgmma": n_tc,
+                                "simt": launches["flash_attention"] - n_tc},
+                     "simt_ms": r["simt_ms"]}
         line.append({**k, "status": "ported and checked",
                      "launches": launches[k["name"]],
                      "max_abs_err": r["max_abs_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"], **extra})
     print(json.dumps({"kernels": line, "queued": QUEUED, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

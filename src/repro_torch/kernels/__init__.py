@@ -9,17 +9,19 @@ launches its kernel or raises; given a CPU tensor it runs the kernel's
 plain PyTorch version.
 
 ``LAUNCHES`` counts wrapper calls that launched a kernel (plain-version
-calls on CPU tensors do not count).  ``FALLBACKS`` counts the paths that
-bypass the kernels: the stock-torch stable sorts taken when keys are too
-wide to tag (``stable_sort_perm``, ``dedup_rows``) and the exact host
-redo of a join whose keys collide with a pad sentinel
-(``join_host_redo``).
+calls on CPU tensors do not count); ``flash_attention`` counts both of
+its routes, ``flash_attention_wgmma`` the tensor-core route alone.
+``FALLBACKS`` counts the paths that bypass the kernels: the stock-torch
+stable sorts taken when keys are too wide to tag (``stable_sort_perm``,
+``dedup_rows``) and the exact host redo of a join whose keys collide
+with a pad sentinel (``join_host_redo``).
 """
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
             "merge_ranks": 0, "unique_mask_sorted": 0,
-            "flash_attention": 0, "ssd_intra": 0}
-# the fact engine's kernels; the LM serving path's are the other two
+            "flash_attention": 0, "flash_attention_wgmma": 0,
+            "ssd_intra": 0}
+# the fact engine's kernels; the LM serving path's are the others
 ENGINE_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
                   "merge_ranks", "unique_mask_sorted")
 FALLBACKS = {"stable_sort_perm": 0, "dedup_rows": 0, "join_host_redo": 0}

@@ -44,6 +44,10 @@ SOURCES = {
         "flash_attention_bf16": "pppp" + "i" * 9 + "p",
         "flash_attention_f16": "pppp" + "i" * 9 + "p",
     }),
+    "flash_attention_tc": ("flash_attention_tc.cu", {
+        "flash_attention_tc_bf16": "pppp" + "i" * 9 + "p",
+        "flash_attention_tc_f16": "pppp" + "i" * 9 + "p",
+    }),
     "ssd_intra": ("ssd_intra.cu", {
         "ssd_intra_f32": "pppppp" + "i" * 6 + "p",
     }),

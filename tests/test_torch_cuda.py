@@ -232,10 +232,22 @@ def test_cuda_ops_unique_mask_and_sketch(cuda):
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 
 
+def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
+    r = rng(salt, B, Sq, Skv, Hq, hd)
+    return [T(r.randn(B, S, H, hd).astype(np.float32)).to(cuda, dtype)
+            for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,hd", [
     (1, 1, 1, 1, 1, 16), (2, 77, 77, 8, 2, 32), (1, 20, 91, 4, 1, 64),
     (2, 130, 130, 32, 4, 128), (1, 50, 13, 2, 2, 16), (1, 33, 33, 12, 1, 16),
+    # the tensor-core route's edges in 16 bits: Sq of 1, 63, 64, 65, 130
+    # and 2049 around its 128-row tiles and 128-key tiles, Sq < Skv and
+    # Sq > Skv, groups of 1, 4 and 8
+    (1, 1, 1, 8, 1, 128), (1, 1, 300, 4, 4, 64), (1, 63, 63, 4, 1, 64),
+    (2, 64, 100, 8, 8, 128), (1, 65, 65, 8, 1, 64), (1, 130, 40, 8, 2, 128),
+    (1, 2049, 2049, 8, 1, 128),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -245,20 +257,58 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
                                            causal, window, dtype):
     """Ragged lengths, Sq != Skv both ways, groups of 1 to 12 heads;
     float32 within 1e-5 (sums reassociated), bf16 and fp16 within an
-    ulp of the output (2e-2, 4e-3)."""
+    ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64 or 128
+    take the tensor-core route, the rest the CUDA-core one."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_plain)
-    r = rng("cflash", B, Sq, Skv, Hq, hd)
-    q, k, v = (T(r.randn(B, S, H, hd).astype(np.float32)).to(cuda, dtype)
-               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
-    before = kernels.LAUNCHES["flash_attention"]
+        _route, flash_attention, flash_attention_plain)
+    q, k, v = flash_inputs(cuda, dtype, "cflash", B, Sq, Skv, Hq, Hkv, hd)
+    before = dict(kernels.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    wgmma = _route(dtype, hd, Hq, Hkv) == "wgmma"
+    assert wgmma == (dtype != torch.float32 and hd in (64, 128))
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + 1)
+    assert kernels.LAUNCHES["flash_attention_wgmma"] == (
+        before["flash_attention_wgmma"] + wgmma)
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype):
+    """The tensor-core route sums in a fixed order (no atomics): two calls
+    on the same inputs give bitwise-equal outputs."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    q, k, v = flash_inputs(cuda, dtype, "cdet", 2, 300, 300, 8, 2, 128)
+    before = kernels.LAUNCHES["flash_attention_wgmma"]
+    a = flash_attention(q, k, v, causal=True, window=100)
+    b = flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_wgmma"] == before + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_misaligned(cuda):
+    """TMA reads 16-byte-aligned tensors only: a contiguous view two bytes
+    into a buffer raises before any launch."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    n = 1 * 64 * 2 * 64
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:n + 1].view(1, 64, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(*args)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.cuda

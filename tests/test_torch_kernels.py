@@ -423,4 +423,4 @@ def test_cpu_tensors_launch_nothing():
     assert kernels.counts()["launches"] == {
         "bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
         "merge_ranks": 0, "unique_mask_sorted": 0, "flash_attention": 0,
-        "ssd_intra": 0}
+        "flash_attention_wgmma": 0, "ssd_intra": 0}
