@@ -16,7 +16,9 @@ Phases, each fatal on failure:
    ``sort_mode="sketch"`` (the device sketch); each run's decoded-fact
    checksum, ``facts_inferred`` and every query's row set equal to the
    port's ``numpy`` backend on the same facts, and each compressed run's
-   coded resident bytes below its raw ones.  ``Ops.unique_mask`` once at
+   coded resident bytes below its raw ones; the sort kernels' launches
+   counted by log2 of the padded length (``engine_sort_sizes``).
+   ``Ops.unique_mask`` once at
    full width against ``NumpyOps.unique_mask``.  Every kernel launched
    on that path; then one more raw and one more compressed ``infer1``
    run under ``torch.profiler`` for the device busy time;
@@ -37,7 +39,11 @@ Phases, each fatal on failure:
    both of its routes), timed with
    CUDA events (median of ``--reps`` runs, L2 flushed before each)
    beside the plain version, one PyTorch library call as a yardstick
-   where one exists, and the bound;
+   where one exists, and the bound; both sorts also at 2^13, 2^16, 2^18
+   and their table shapes beside ``torch.sort``, with the device kernels
+   one call launches and their split into the first tile launch, the
+   fused cross-tile launches and the later tile launches
+   (``torch.profiler``);
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
@@ -55,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -121,6 +128,130 @@ def max_abs_err(torch, pairs) -> int:
             d = (a.to(torch.float64) - b.to(torch.float64)).abs().max()
             err = max(err, int(d), 1)
     return err
+
+
+# the device kernels of csrc/bitonic_sort.cu (tile launches, then the two
+# kinds of cross-tile launch), and those of the engine's other kernels
+SORT_KERNELS = ("tile_network", "cross_fused", "cross_smem")
+OUR_KERNELS = (*SORT_KERNELS, "probe_kernel", "rank_kernel",
+               "unique_mask_kernel")
+
+
+def is_sort_kernel(name: str) -> bool:
+    return any(k in name for k in SORT_KERNELS)
+
+
+def sort_split(torch, fn, n: int, elem_bytes: int) -> dict:
+    """One sort call's device kernels, from ``torch.profiler`` (as
+    ``lm_profile`` counts them), L2 flushed first, in three groups: the
+    first tile launch, every cross-tile launch (``cross_fused`` and
+    ``cross_smem``) and the later tile launches, each with its launches,
+    device ms and bound (each launch reads and writes the ``n``-element
+    array once); ``other`` is the wrapper's pad copy and fill.  The tracer
+    can miss the first launches after it starts, even behind a spin kernel
+    and a pause (seen after earlier profiles in one process), so three
+    calls run and the last is counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        for _ in range(3):
+            flush.bitwise_not_()  # L2 flushed before each call
+            fn()
+        torch.cuda.synchronize()
+    calls = [(e.name, e.time_range.elapsed_us() / 1e3) for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and not any(w in e.name for w in ("spin", "bitwise_not"))),
+        key=lambda e: e.time_range.start)]
+    last = 0
+    for i in range(1, len(calls)):
+        if is_sort_kernel(calls[i - 1][0]) and not is_sort_kernel(
+                calls[i][0]):
+            last = i  # a wrapper's pad copy after a sort kernel: a new call
+    calls = calls[last:]
+    sort = [(k, ms) for k, ms in calls if is_sort_kernel(k)]
+    other = [ms for k, ms in calls if not is_sort_kernel(k)]
+    if not sort:
+        fail("sort_split: the profiler saw no sort kernel")
+    tile = SORT_KERNELS[0]
+    groups = {"first_tile": sort[:1],
+              "cross": [c for c in sort[1:] if tile not in c[0]],
+              "later_tiles": [c for c in sort[1:] if tile in c[0]]}
+    per_launch = bound_ms(2 * n * elem_bytes, 0)[0]
+    out = {g: {"launches": len(c), "ms": sum(ms for _, ms in c),
+               "bound_ms": len(c) * per_launch}
+           for g, c in groups.items()}
+    out["other"] = {"launches": len(other), "ms": sum(other)}
+    out["sort_kernels"] = len(sort)
+    out["device_kernels"] = len(calls)
+    out["kernel_names"] = sorted({m.group(0) for k, _ in sort for m in [
+        re.search(rf"({'|'.join(SORT_KERNELS)})<[^>]*>", k)] if m})
+    return out
+
+
+def sort_detail(torch, rng, reps: int, sizes=(13, 16, 18)) -> list:
+    """Both sort kernels at 2^s for each of ``sizes`` (by default 2^13,
+    2^16 and 2^18, the engine's most frequent large sort) and at the table
+    shapes: bit checks against the plain versions, kernel ms beside
+    ``torch.sort`` ms, and at the table shapes the device kernels one call
+    launches, their split into first tile, cross-tile and later tile
+    launches, and a check that the sort kernels counted are
+    ``launch_plan``'s."""
+    import numpy as np
+
+    from repro_torch.kernels.sortmerge.ops import tag_bits_for
+    from repro_torch.kernels.sortmerge.sortmerge import (
+        bitonic_sort, bitonic_sort_kv, bitonic_sort_kv_plain,
+        bitonic_sort_plain, launch_plan, sort_tier)
+
+    rows = []
+    for name, lg_top in (("bitonic_sort", 21), ("bitonic_sort_kv", 20)):
+        for lg in sorted({*sizes, lg_top}):
+            n = 1 << lg
+            if name == "bitonic_sort":  # tagged keys, as the index builds
+                tb = tag_bits_for(n)
+                raw = rng.randint(0, 1 << 30, n).astype(np.int64)
+                x = torch.tensor((raw << tb) | np.arange(n, dtype=np.int64),
+                                 device="cuda")
+                err = max_abs_err(torch, [(bitonic_sort(x),
+                                           bitonic_sort_plain(x))])
+                call, lib, eb = (lambda: bitonic_sort(x),
+                                 lambda: torch.sort(x), 8)
+            else:  # keys with many ties, an int32 payload
+                k = torch.tensor(rng.randint(0, 1 << 16, n).astype(np.int64),
+                                 device="cuda")
+                v = torch.arange(n, dtype=torch.int32, device="cuda")
+                (gk, gv), (wk, wv) = (bitonic_sort_kv(k, v),
+                                      bitonic_sort_kv_plain(k, v))
+                err = max_abs_err(torch, [(gk, wk), (gv, wv)])
+                call, lib, eb = (lambda: bitonic_sort_kv(k, v),
+                                 lambda: torch.sort(k), 12)
+            kv = name == "bitonic_sort_kv"
+            row = {"sort_size": name, "n": n,
+                   "tile": sort_tier(n, kv)[0], "max_abs_err": err,
+                   "kernel_ms": time_ms(torch, call, reps),
+                   "library_ms": time_ms(torch, lib, reps),
+                   "bound_ms": bound_ms(2 * eb * n, 0)[0],
+                   "plan_launches": len(launch_plan(n, kv=kv))}
+            if lg == lg_top:
+                row["split"] = sort_split(torch, call, n, eb)
+            print(json.dumps(row), flush=True)
+            if err:
+                fail(f"{name} at n={n}: kernel and plain version differ")
+            if lg == lg_top and (
+                    row["split"]["sort_kernels"] != row["plan_launches"]):
+                fail(f"{name} at n={n}: {row['split']['sort_kernels']} "
+                     f"sort kernels, launch_plan says "
+                     f"{row['plan_launches']}")
+            rows.append(row)
+    return rows
 
 
 def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
@@ -251,6 +382,7 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
         # operations: one compare per element
         "bound": bound_ms(9 * n, n)}
 
+    sort_detail(torch, rng, reps)
     out.update(lm_kernel_rows(torch, rng, reps))
 
     # the launches above compare and time the kernels; they are not the
@@ -473,6 +605,8 @@ def engine_phase(torch, scale: int, seed: int):
                       "seconds": time.perf_counter() - t0}), flush=True)
 
     launches = {name: 0 for name in kernels.ENGINE_KERNELS}
+    # the sort kernels' launches by log2 of the padded length, all runs
+    sort_sizes = {name: {} for name in kernels.SORT_SIZES}
     shapes, undo = merge_shapes(torch_ops)
     for preset, overrides in RUNS:
         e = HiperfactEngine(engine_config(preset, overrides))
@@ -506,6 +640,7 @@ def engine_phase(torch, scale: int, seed: int):
                "sketch_misses": stats.sketch_misses,
                "rows": [len(s) for s in rows],
                "launches": counts["launches"],
+               "sort_sizes": counts["sort_sizes"],
                "width_fallbacks": counts["fallbacks"],
                "transfers": {"h2d_calls": moved.h2d_calls,
                              "h2d_bytes": moved.h2d_bytes,
@@ -521,6 +656,9 @@ def engine_phase(torch, scale: int, seed: int):
         print(json.dumps(rec), flush=True)
         for name in launches:
             launches[name] += counts["launches"][name]
+        for name, by_lg in counts["sort_sizes"].items():
+            for lg, c in by_lg.items():
+                sort_sizes[name][lg] = sort_sizes[name].get(lg, 0) + c
         label = f"{preset} {overrides}"
         if stats.facts_inferred != ref_stats.facts_inferred:
             fail(f"{label}: facts_inferred {stats.facts_inferred} != "
@@ -536,6 +674,9 @@ def engine_phase(torch, scale: int, seed: int):
         # release this engine's device cache before the next run
         e.ops.cache.clear()
     undo()
+    print(json.dumps({"engine_sort_sizes": {
+        k: dict(sorted(v.items())) for k, v in sort_sizes.items()}}),
+        flush=True)
     launches = unique_mask_entry(torch, launches)
     # a run may skip a kernel for a reason of its data or its mode: an
     # index mirror whose column outgrows its power-of-two buffer is
@@ -581,10 +722,6 @@ def unique_mask_entry(torch, launches: dict) -> dict:
     return {k: launches[k] + counts[k] for k in launches}
 
 
-OUR_KERNELS = ("tile_passes", "cross_pass", "probe_kernel", "rank_kernel",
-               "unique_mask_kernel")
-
-
 def device_events(prof) -> dict:
     """{kernel name: (device us, calls)} of a profile's device-side events
     (kernels, memcpys): a host op's device time repeats the time of the
@@ -623,6 +760,7 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
     busy = sum(us for us, _ in per.values()) / 1e6
     ours = sum(us for k, (us, _) in per.items()
                if any(n in k for n in OUR_KERNELS)) / 1e6
+    sorts = sum(us for k, (us, _) in per.items() if is_sort_kernel(k)) / 1e6
     copies = sum(us for k, (us, _) in per.items()
                  if "memcpy" in k.lower()) / 1e6
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
@@ -630,7 +768,7 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
         "profile": preset, **overrides, "wall_s": wall,
         "device_busy_s": busy if busy else "not measured",
         "idle_share": 1 - busy / wall if busy else "not measured",
-        "own_kernels_s": ours, "copies_s": copies,
+        "own_kernels_s": ours, "sort_kernels_s": sorts, "copies_s": copies,
         "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                                for k, (us, c) in top]}), flush=True)
 

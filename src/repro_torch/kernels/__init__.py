@@ -14,7 +14,8 @@ its routes, ``flash_attention_wgmma`` the tensor-core route alone.
 ``FALLBACKS`` counts the paths that bypass the kernels: the stock-torch
 stable sorts taken when keys are too wide to tag (``stable_sort_perm``,
 ``dedup_rows``) and the exact host redo of a join whose keys collide
-with a pad sentinel (``join_host_redo``).
+with a pad sentinel (``join_host_redo``).  ``SORT_SIZES`` counts the
+sort kernels' launches by log2 of the padded length.
 """
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
@@ -25,14 +26,26 @@ LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
 ENGINE_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
                   "merge_ranks", "unique_mask_sorted")
 FALLBACKS = {"stable_sort_perm": 0, "dedup_rows": 0, "join_host_redo": 0}
+# launches of the two sort kernels by log2 of the padded length
+SORT_SIZES: dict = {"bitonic_sort": {}, "bitonic_sort_kv": {}}
+
+
+def count_sort_size(name: str, n_pad: int) -> None:
+    sizes = SORT_SIZES[name]
+    lg = n_pad.bit_length() - 1
+    sizes[lg] = sizes.get(lg, 0) + 1
 
 
 def reset_counts() -> None:
     for d in (LAUNCHES, FALLBACKS):
         for k in d:
             d[k] = 0
+    for sizes in SORT_SIZES.values():
+        sizes.clear()
 
 
 def counts() -> dict:
-    """A snapshot of both counters."""
-    return {"launches": dict(LAUNCHES), "fallbacks": dict(FALLBACKS)}
+    """A snapshot of the counters."""
+    return {"launches": dict(LAUNCHES), "fallbacks": dict(FALLBACKS),
+            "sort_sizes": {k: dict(sorted(v.items()))
+                           for k, v in SORT_SIZES.items()}}

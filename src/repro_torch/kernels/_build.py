@@ -122,12 +122,18 @@ def library(name: str) -> ctypes.CDLL:
             path = _lib_path(name)
             if not path.exists():
                 build_all()
-            lib = ctypes.CDLL(str(path))
-            for fn, kinds in SOURCES[name][1].items():
-                f = getattr(lib, fn)
-                f.argtypes = [_ARG[k] for k in kinds]
-                f.restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = load(path, name)
+    return lib
+
+
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path`` with ``argtypes``/``restype``
+    declared for the entry points of library ``name``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, kinds in SOURCES[name][1].items():
+        f = getattr(lib, fn)
+        f.argtypes = [_ARG[k] for k in kinds]
+        f.restype = ctypes.c_int
     return lib
 
 

@@ -28,10 +28,14 @@ from repro_torch.kernels import _build
 
 
 def _pad_pow2(x: torch.Tensor, fill) -> torch.Tensor:
+    """A new buffer of the next power of two: ``x``, then ``fill``.  The
+    input is copied once and only the tail is filled."""
     n = x.shape[0]
     n_pad = 1 << max(n - 1, 0).bit_length()
-    out = torch.full((n_pad,), fill, dtype=x.dtype, device=x.device)
+    out = torch.empty((n_pad,), dtype=x.dtype, device=x.device)
     out[:n] = x
+    if n_pad > n:
+        out[n:].fill_(fill)
     return out
 
 
@@ -43,6 +47,109 @@ def _passes(n_pad: int):
             yield k, j
             j //= 2
         k *= 2
+
+
+# How the CUDA kernel groups the network (the constants at the head of
+# csrc/bitonic_sort.cu): the tile and register width of the keys-only and
+# of the key-value sort on large arrays (the top tier), the smaller tiers,
+# the tiles an array must hold to take a tier, and the cross-tile levels
+# fused per launch
+SORT_TILE, SORT_REG = 1 << 14, 32
+SORT_KV_TILE, SORT_KV_REG = 1 << 13, 16
+SORT_LOWER_TIERS = ((1 << 13, 16), (1 << 12, 16), (1 << 10, 8))
+SORT_MIN_TILES = 128
+SORT_FUSE = 4  # cross-tile levels fused in registers, at most
+# cross-tile levels of one launch, at most, once the array holds
+# SORT_MIN_TILES shared-memory blocks of _CROSS_BLOCK elements (cross_smem:
+# _XS_THREADS threads of 2**_XS_REG_LOG2 elements)
+SORT_CROSS_LEVELS = 9
+_XS_THREADS, _XS_REG_LOG2 = 512, 4
+_CROSS_BLOCK = _XS_THREADS << _XS_REG_LOG2
+_SMEM_LEVELS = 4  # shared-memory levels per barrier, at most
+
+
+def sort_tier(n_pad: int, kv: bool = False) -> tuple[int, int]:
+    """(tile, register width) the kernel takes for a padded length: the top
+    tier when ``n_pad`` holds ``SORT_MIN_TILES`` of its tiles, else the
+    first smaller tier it fills as well, else the last."""
+    top = (SORT_KV_TILE, SORT_KV_REG) if kv else (SORT_TILE, SORT_REG)
+    if n_pad >= SORT_MIN_TILES * top[0]:
+        return top
+    for tile, reg in SORT_LOWER_TIERS[:-1]:
+        if tile < top[0] and n_pad >= SORT_MIN_TILES * tile:
+            return tile, reg
+    return SORT_LOWER_TIERS[-1]
+
+
+def launch_plan(n_pad: int, tile: int | None = None,
+                reg_width: int | None = None, fuse: int | None = None,
+                kv: bool = False, cross_levels: int | None = None) -> list:
+    """The CUDA kernel's launches for a padded length ``n_pad``, in order
+    (by default on the tier ``sort_tier(n_pad, kv)`` picks):
+    ``(kind, steps)`` with kind ``"tile"`` (one shared-memory tile per
+    block) or ``"cross"`` (fused levels through device memory), and each
+    step ``(where, levels)``: the ``(k, j)`` passes that one unit of the
+    kernel applies together, ``where`` being ``"cross"`` or ``"smem"`` (a
+    sub-network of ``2**len(levels)`` elements per thread, loaded once and
+    stored once), ``"shuffle"`` (warp levels) or ``"register"``.  A cross
+    launch runs up to ``cross_levels`` levels (by default
+    ``SORT_CROSS_LEVELS`` when the array holds ``SORT_MIN_TILES`` blocks
+    of ``_CROSS_BLOCK`` elements, else ``fuse``, by default ``SORT_FUSE``):
+    up to ``fuse`` of them as one register sub-network, more as
+    shared-memory groups of up to ``_SMEM_LEVELS`` over a block of rows.
+    Flattened, the levels are ``_passes(n_pad)``."""
+    if tile is None:
+        tile, reg_width = sort_tier(n_pad, kv)
+    if fuse is None:
+        fuse = SORT_FUSE
+    if cross_levels is None:
+        cross_levels = (SORT_CROSS_LEVELS
+                        if n_pad >= SORT_MIN_TILES * _CROSS_BLOCK else fuse)
+    launches = []
+    if n_pad < 2:
+        return launches
+    launches.append(("tile", _tile_steps(2, min(n_pad, tile), tile,
+                                         reg_width)))
+    k = 2 * tile
+    while k <= n_pad:
+        j = k // 2
+        while j >= tile:
+            r = min(cross_levels, (j // tile).bit_length())
+            levels = [(k, j >> m) for m in range(r)]
+            group = min(_XS_REG_LOG2, _SMEM_LEVELS)
+            launches.append(("cross", [("cross", levels)] if r <= fuse else [
+                ("smem", levels[i:i + group]) for i in range(0, r, group)]))
+            j >>= r
+        launches.append(("tile", _tile_steps(k, k, tile, reg_width)))
+        k *= 2
+    return launches
+
+
+def _tile_steps(k_lo: int, k_hi: int, tile: int, reg_width: int) -> list:
+    """Steps of one tile launch: stages ``k_lo .. k_hi``, each from
+    ``j = min(k, tile) / 2`` down: shared-memory groups of up to
+    ``min(log2(reg_width), _SMEM_LEVELS)`` levels while
+    ``j >= 32 * reg_width``, then the warp levels, then the register
+    levels ``j < reg_width``."""
+    span = 32 * reg_width
+    e_log2 = min(reg_width.bit_length() - 1, _SMEM_LEVELS)
+    steps = []
+    k = k_lo
+    while k <= k_hi:
+        j = min(k, tile) // 2
+        while j >= span:
+            r = min(e_log2, (j // span).bit_length())
+            steps.append(("smem", [(k, j >> m) for m in range(r)]))
+            j >>= r
+        for where, low in (("shuffle", reg_width), ("register", 1)):
+            levels = []
+            while j >= low:
+                levels.append((k, j))
+                j //= 2
+            if levels:
+                steps.append((where, levels))
+        k *= 2
+    return steps
 
 
 def bitonic_sort_plain(x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +218,10 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes) -> None:
 
 
 def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
-    """Sort a 1-D int32/int64 tensor ascending."""
+    """Sort a 1-D int32/int64 tensor ascending.  The CUDA kernel groups the
+    network's levels into tiles, warps, registers and fused launches
+    (``launch_plan``) and computes the same function as the plain version;
+    a tensor it does not take raises, and nothing falls back."""
     if x.device.type == "cpu":
         return bitonic_sort_plain(x)
     if x.device.type != "cuda":
@@ -128,12 +238,16 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "bitonic_sort")
     kernels.LAUNCHES["bitonic_sort"] += 1
+    kernels.count_sort_size("bitonic_sort", xp.shape[0])
     return xp[:n]
 
 
 def bitonic_sort_kv(keys: torch.Tensor, vals: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Key-value sort: int64 keys carrying an int32 payload (unstable)."""
+    """Key-value sort: int64 keys carrying an int32 payload (unstable).
+    The CUDA kernel runs the plain version's compare-exchanges in the same
+    order, regrouped as ``launch_plan(n, kv=True)`` says, so the payload
+    order of tied keys is the plain version's too."""
     if keys.device.type == "cpu" and vals.device.type == "cpu":
         return bitonic_sort_kv_plain(keys, vals)
     if keys.device.type != "cuda" or vals.device != keys.device:
@@ -154,6 +268,7 @@ def bitonic_sort_kv(keys: torch.Tensor, vals: torch.Tensor
         torch.cuda.current_stream(keys.device).cuda_stream),
         "bitonic_sort_kv")
     kernels.LAUNCHES["bitonic_sort_kv"] += 1
+    kernels.count_sort_size("bitonic_sort_kv", kp.shape[0])
     return kp[:n], vp[:n]
 
 

@@ -20,7 +20,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.mergejoin.mergejoin import (probe_sorted,
                                                      probe_sorted_plain)
-from repro_torch.kernels.sortmerge.sortmerge import (bitonic_sort,
+from repro_torch.kernels.sortmerge.sortmerge import (SORT_FUSE, SORT_KV_REG,
+                                                     SORT_KV_TILE,
+                                                     SORT_LOWER_TIERS,
+                                                     SORT_MIN_TILES, SORT_REG,
+                                                     SORT_TILE, bitonic_sort,
                                                      bitonic_sort_kv,
                                                      bitonic_sort_kv_plain,
                                                      bitonic_sort_plain,
@@ -80,6 +84,62 @@ def test_cuda_bitonic_sort_kv_equals_plain(cuda, n):
     wk, wv = bitonic_sort_kv_plain(k, v)
     torch.cuda.synchronize()
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+def boundary_sizes(top):
+    """Sizes on each side of the sort kernel's boundaries, for its top tier
+    and each smaller one: the register width, a warp's span, the tile, the
+    tile times the fused levels' reach, the size from which the tier is
+    taken, and one size past 2^21."""
+    sizes = {(1 << 21) + 5}
+    for tile, reg in (top, *SORT_LOWER_TIERS):
+        reach = tile << SORT_FUSE
+        sizes |= {reg, 32 * reg, tile, tile + 1, reach, reach + 3,
+                  SORT_MIN_TILES * tile, SORT_MIN_TILES * tile + 1}
+    return sorted(n for n in sizes if n <= 1 << 22)
+
+
+def ties_and_max(r, n, dtype):
+    """Keys with many ties, real keys equal to the dtype's max (the pad
+    value) and its min."""
+    info = np.iinfo(dtype)
+    x = r.randint(-20, 20, n).astype(dtype)
+    x[r.choice(n, min(n, 6), replace=False)] = [info.max, info.min,
+                                                info.max, 0, info.max,
+                                                info.min][:min(n, 6)]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", boundary_sizes((SORT_TILE, SORT_REG)))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cuda_bitonic_sort_boundaries(cuda, n, dtype):
+    x = T(ties_and_max(rng("cbound", n, str(dtype)), n,
+                       np.int32 if dtype == torch.int32
+                       else np.int64)).to(cuda)
+    before_x = x.clone()
+    before = kernels.LAUNCHES["bitonic_sort"]
+    got = bitonic_sort(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitonic_sort_plain(x))
+    assert torch.equal(x, before_x)  # the input is left as it was
+    assert kernels.LAUNCHES["bitonic_sort"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", boundary_sizes((SORT_KV_TILE, SORT_KV_REG)))
+def test_cuda_bitonic_sort_kv_boundaries(cuda, n):
+    r = rng("ckvbound", n)
+    k = T(ties_and_max(r, n, np.int64)).to(cuda)
+    v = T(r.permutation(n).astype(np.int32)).to(cuda)
+    k0, v0 = k.clone(), v.clone()
+    before = kernels.LAUNCHES["bitonic_sort_kv"]
+    gk, gv = bitonic_sort_kv(k, v)
+    torch.cuda.synchronize()
+    wk, wv = bitonic_sort_kv_plain(k, v)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+    assert kernels.LAUNCHES["bitonic_sort_kv"] == before + 1
 
 
 @pytest.mark.cuda
