@@ -19,7 +19,9 @@ Phases, each fatal on failure:
    coded resident bytes below its raw ones; the sort kernels' launches
    counted by log2 of the padded length (``engine_sort_sizes``).
    ``Ops.unique_mask`` once at
-   full width against ``NumpyOps.unique_mask``.  Every kernel launched
+   full width against ``NumpyOps.unique_mask``; the probe's launches by
+   (log2 n, log2 m) and the unique mask's by log2 n over all of that
+   (``engine_probe_sizes``).  Every kernel launched
    on that path; then one more raw and one more compressed ``infer1``
    run under ``torch.profiler`` for the device busy time;
 4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4) and then
@@ -43,7 +45,10 @@ Phases, each fatal on failure:
    and their table shapes beside ``torch.sort``, with the device kernels
    one call launches and their split into the first tile launch, the
    fused cross-tile launches and the later tile launches
-   (``torch.profiler``);
+   (``torch.profiler``); the probe at m = 2^10 .. 2^21 right keys (n =
+   m / 2) and at the engine's shapes beside two ``torch.searchsorted``
+   calls and the unique mask at 2^13 .. 2^21 keys beside ``torch.ne``,
+   each checked bit for bit;
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
@@ -133,8 +138,8 @@ def max_abs_err(torch, pairs) -> int:
 # the device kernels of csrc/bitonic_sort.cu (tile launches, then the two
 # kinds of cross-tile launch), and those of the engine's other kernels
 SORT_KERNELS = ("tile_network", "cross_fused", "cross_smem")
-OUR_KERNELS = (*SORT_KERNELS, "probe_kernel", "rank_kernel",
-               "unique_mask_kernel")
+OUR_KERNELS = (*SORT_KERNELS, "probe_splitters", "probe_gather",
+               "rank_kernel", "unique_mask_vec")
 
 
 def is_sort_kernel(name: str) -> bool:
@@ -251,6 +256,75 @@ def sort_detail(torch, rng, reps: int, sizes=(13, 16, 18)) -> list:
                      f"sort kernels, launch_plan says "
                      f"{row['plan_launches']}")
             rows.append(row)
+    return rows
+
+
+# (log2 n, log2 m) of the probe's by-size rows: n = m / 2 from 2^10 to
+# 2^21 right keys, then the engine's most frequent shape (32 left keys
+# against 2^21) and its largest (engine_probe_sizes at scale 500); log2
+# of the unique mask's
+PROBE_SIZES = ((9, 10), (12, 13), (15, 16), (17, 18), (20, 21), (5, 21),
+               (15, 21), (18, 19))
+UNIQUE_SIZES = (13, 16, 18, 21)
+
+
+def search_detail(torch, rng, reps: int, probe_sizes=PROBE_SIZES,
+                  unique_sizes=UNIQUE_SIZES) -> list:
+    """``probe_sorted`` at n = 2^a left keys against m = 2^b sorted right
+    keys for each (a, b) of ``probe_sizes`` (keys drawn from [0, 2m), as
+    the kernel phase's), and ``unique_mask_sorted`` at 2^s sorted keys
+    with about eight rows per value for each of ``unique_sizes``: bit
+    checks against the plain versions (the mask also on the view
+    ``x[1:]``, 8 bytes past a 16-byte boundary), kernel ms beside the
+    library call's ms, and the bound."""
+    import numpy as np
+
+    from repro_torch.kernels.mergejoin.mergejoin import (probe_plan,
+                                                         probe_sorted,
+                                                         probe_sorted_plain)
+    from repro_torch.kernels.uniquefilter.uniquefilter import (
+        unique_mask_sorted, unique_mask_sorted_plain)
+
+    rows = []
+    for lg_n, lg_m in probe_sizes:
+        n, m = 1 << lg_n, 1 << lg_m
+        r = torch.tensor(np.sort(rng.randint(0, 2 * m, m)).astype(np.int64),
+                         device="cuda")
+        lk = torch.tensor(rng.randint(0, 2 * m, n).astype(np.int64),
+                          device="cuda")
+        s, table = probe_plan(m)
+        rows.append({
+            "search_size": "probe_sorted", "n": n, "m": m, "s": s,
+            "table": table,
+            "max_abs_err": max_abs_err(torch, zip(probe_sorted(lk, r),
+                                                  probe_sorted_plain(lk, r))),
+            "kernel_ms": time_ms(torch, lambda: probe_sorted(lk, r), reps),
+            "library_ms": time_ms(
+                torch, lambda: (torch.searchsorted(r, lk),
+                                torch.searchsorted(r, lk, right=True)), reps),
+            "bound_ms": bound_ms(8 * n + 8 * m + 8 * n, 0)[0]})
+        print(json.dumps(rows[-1]), flush=True)
+    for lg in unique_sizes:
+        n = 1 << lg
+        x = torch.tensor(np.sort(rng.randint(0, n // 8, n + 1)).astype(
+            np.int64), device="cuda")
+        xa, xu = x[:n], x[1:]  # 16-byte aligned, and 8 bytes past it
+        rows.append({
+            "search_size": "unique_mask_sorted", "n": n,
+            "max_abs_err": max_abs_err(torch, [
+                (unique_mask_sorted(v), unique_mask_sorted_plain(v))
+                for v in (xa, xu)]),
+            "kernel_ms": time_ms(torch, lambda: unique_mask_sorted(xa), reps),
+            "unaligned_ms": time_ms(torch, lambda: unique_mask_sorted(xu),
+                                    reps),
+            "library_ms": time_ms(torch, lambda: torch.ne(xa[1:], xa[:-1]),
+                                  reps),
+            "bound_ms": bound_ms(9 * n, n)[0]})
+        print(json.dumps(rows[-1]), flush=True)
+    for row in rows:
+        if row["max_abs_err"]:
+            fail(f"{row['search_size']} at n={row['n']}: kernel and plain "
+                 "version differ")
     return rows
 
 
@@ -383,6 +457,7 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
         "bound": bound_ms(9 * n, n)}
 
     sort_detail(torch, rng, reps)
+    search_detail(torch, rng, reps)
     out.update(lm_kernel_rows(torch, rng, reps))
 
     # the launches above compare and time the kernels; they are not the
@@ -605,8 +680,10 @@ def engine_phase(torch, scale: int, seed: int):
                       "seconds": time.perf_counter() - t0}), flush=True)
 
     launches = {name: 0 for name in kernels.ENGINE_KERNELS}
-    # the sort kernels' launches by log2 of the padded length, all runs
-    sort_sizes = {name: {} for name in kernels.SORT_SIZES}
+    # the sort kernels' launches by log2 of the padded length, and the
+    # probe's by (log2 n, log2 m) and the unique mask's by log2 n, all runs
+    sizes = {"sort_sizes": {name: {} for name in kernels.SORT_SIZES},
+             "search_sizes": {name: {} for name in kernels.SEARCH_SIZES}}
     shapes, undo = merge_shapes(torch_ops)
     for preset, overrides in RUNS:
         e = HiperfactEngine(engine_config(preset, overrides))
@@ -641,6 +718,7 @@ def engine_phase(torch, scale: int, seed: int):
                "rows": [len(s) for s in rows],
                "launches": counts["launches"],
                "sort_sizes": counts["sort_sizes"],
+               "search_sizes": counts["search_sizes"],
                "width_fallbacks": counts["fallbacks"],
                "transfers": {"h2d_calls": moved.h2d_calls,
                              "h2d_bytes": moved.h2d_bytes,
@@ -656,9 +734,7 @@ def engine_phase(torch, scale: int, seed: int):
         print(json.dumps(rec), flush=True)
         for name in launches:
             launches[name] += counts["launches"][name]
-        for name, by_lg in counts["sort_sizes"].items():
-            for lg, c in by_lg.items():
-                sort_sizes[name][lg] = sort_sizes[name].get(lg, 0) + c
+        add_sizes(sizes, counts)
         label = f"{preset} {overrides}"
         if stats.facts_inferred != ref_stats.facts_inferred:
             fail(f"{label}: facts_inferred {stats.facts_inferred} != "
@@ -675,9 +751,16 @@ def engine_phase(torch, scale: int, seed: int):
         e.ops.cache.clear()
     undo()
     print(json.dumps({"engine_sort_sizes": {
-        k: dict(sorted(v.items())) for k, v in sort_sizes.items()}}),
-        flush=True)
-    launches = unique_mask_entry(torch, launches)
+        k: dict(sorted(v.items()))
+        for k, v in sizes["sort_sizes"].items()}}), flush=True)
+    counts = unique_mask_entry(torch)
+    launches = {k: launches[k] + counts["launches"][k] for k in launches}
+    add_sizes(sizes, counts)
+    # the probe's and the unique mask's launches over the five runs and
+    # Ops.unique_mask, by size: how the kernel phase's shapes stand
+    print(json.dumps({"engine_probe_sizes": {
+        k: dict(sorted(v.items()))
+        for k, v in sizes["search_sizes"].items()}}), flush=True)
     # a run may skip a kernel for a reason of its data or its mode: an
     # index mirror whose column outgrows its power-of-two buffer is
     # re-sorted, not merged (at scale 500, infer1's only in-infer LPIM
@@ -691,10 +774,19 @@ def engine_phase(torch, scale: int, seed: int):
     return launches, max(shapes)
 
 
-def unique_mask_entry(torch, launches: dict) -> dict:
+def add_sizes(sizes: dict, counts: dict) -> None:
+    """Add a run's launches by size (``kernels.counts()``) to ``sizes``."""
+    for group, per_kernel in sizes.items():
+        for name, by_lg in counts[group].items():
+            for lg, c in by_lg.items():
+                per_kernel[name][lg] = per_kernel[name].get(lg, 0) + c
+
+
+def unique_mask_entry(torch) -> dict:
     """``Ops.unique_mask`` (the compressed backend's entry point of the
     unique-mask kernel) once at full width: a sorted column of 2^20 rows
-    with ties, against ``NumpyOps.unique_mask``."""
+    with ties, against ``NumpyOps.unique_mask``.  Returns the kernel
+    counters of that call."""
     import numpy as np
 
     from repro_torch import kernels
@@ -708,18 +800,19 @@ def unique_mask_entry(torch, launches: dict) -> dict:
     t0 = time.perf_counter()
     got = ops.unique_mask(x)
     secs = time.perf_counter() - t0
-    counts = kernels.counts()["launches"]  # ... and ends here
+    counts = kernels.counts()  # ... and ends here
     moved = ops.transfers.delta(snap)
     want = get_backend("numpy").unique_mask(x)
     equal = bool(np.array_equal(got, want))
     print(json.dumps({"entry": "Ops.unique_mask", "rows": len(x),
                       "distinct": int(want.sum()), "seconds": secs,
-                      "launches": counts, "h2d_bytes": moved.h2d_bytes,
+                      "launches": counts["launches"],
+                      "h2d_bytes": moved.h2d_bytes,
                       "d2h_bytes": moved.d2h_bytes, "equal": equal}),
           flush=True)
     if not equal:
         fail("Ops.unique_mask differs from NumpyOps.unique_mask")
-    return {k: launches[k] + counts[k] for k in launches}
+    return counts
 
 
 def device_events(prof) -> dict:

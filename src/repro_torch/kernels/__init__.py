@@ -15,7 +15,9 @@ its routes, ``flash_attention_wgmma`` the tensor-core route alone.
 stable sorts taken when keys are too wide to tag (``stable_sort_perm``,
 ``dedup_rows``) and the exact host redo of a join whose keys collide
 with a pad sentinel (``join_host_redo``).  ``SORT_SIZES`` counts the
-sort kernels' launches by log2 of the padded length.
+sort kernels' launches by log2 of the padded length, ``SEARCH_SIZES``
+those of ``probe_sorted`` by (log2 n, log2 m) and of
+``unique_mask_sorted`` by log2 n, each rounded up.
 """
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
@@ -28,6 +30,8 @@ ENGINE_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
 FALLBACKS = {"stable_sort_perm": 0, "dedup_rows": 0, "join_host_redo": 0}
 # launches of the two sort kernels by log2 of the padded length
 SORT_SIZES: dict = {"bitonic_sort": {}, "bitonic_sort_kv": {}}
+# launches of the probe by (log2 n, log2 m), of the unique mask by (log2 n,)
+SEARCH_SIZES: dict = {"probe_sorted": {}, "unique_mask_sorted": {}}
 
 
 def count_sort_size(name: str, n_pad: int) -> None:
@@ -36,11 +40,17 @@ def count_sort_size(name: str, n_pad: int) -> None:
     sizes[lg] = sizes.get(lg, 0) + 1
 
 
+def count_search_size(name: str, *lengths: int) -> None:
+    sizes = SEARCH_SIZES[name]
+    key = tuple(max(n - 1, 0).bit_length() for n in lengths)
+    sizes[key] = sizes.get(key, 0) + 1
+
+
 def reset_counts() -> None:
     for d in (LAUNCHES, FALLBACKS):
         for k in d:
             d[k] = 0
-    for sizes in SORT_SIZES.values():
+    for sizes in (*SORT_SIZES.values(), *SEARCH_SIZES.values()):
         sizes.clear()
 
 
@@ -48,4 +58,7 @@ def counts() -> dict:
     """A snapshot of the counters."""
     return {"launches": dict(LAUNCHES), "fallbacks": dict(FALLBACKS),
             "sort_sizes": {k: dict(sorted(v.items()))
-                           for k, v in SORT_SIZES.items()}}
+                           for k, v in SORT_SIZES.items()},
+            "search_sizes": {k: {",".join(map(str, lg)): c
+                                 for lg, c in sorted(v.items())}
+                             for k, v in SEARCH_SIZES.items()}}

@@ -31,7 +31,7 @@ SOURCES = {
         "bitonic_sort_kv_i64": "ppip",
     }),
     "probe_sorted": ("probe_sorted.cu", {
-        "probe_sorted_i64": "pipippp",
+        "probe_sorted_i64": "pipippip",
     }),
     "merge_ranks": ("merge_ranks.cu", {
         "merge_ranks_i64": "pipiipp",

@@ -3,10 +3,13 @@
 Port of the reference ``kernels/mergejoin/mergejoin.py`` ``probe_sorted``
 (paper fork-join instance 2): for every left key, the ``[lo, hi)`` run of
 equal keys in a sorted right array, as int32 bounds.  The kernel
-(``csrc/probe_sorted.cu``) runs one thread per left key over the right
-array in device memory; the plain version is the Pallas kernel's
-branch-free search — ``log2(m) + 1`` masked halving steps over all left
-keys at once.
+(``csrc/probe_sorted.cu``) searches a table of every ``2^s``-th right key
+in shared memory, finishes the lower bound in one window of ``2^s`` keys
+in device memory and gallops from it to the upper bound.  ``probe_plan``
+gives ``s`` and the table's size (the wrapper allocates the table's
+scratch by it); ``probe_staged`` mirrors the staging for the CPU tests.
+The plain version is the Pallas kernel's branch-free search —
+``log2(m) + 1`` masked halving steps over all left keys at once.
 """
 
 from __future__ import annotations
@@ -16,6 +19,81 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.sortmerge.sortmerge import merge_ranks_plain
+
+# the splitter table's most entries, log2 (PROBE_TABLE_LOG2 of
+# csrc/probe_sorted.cu)
+PROBE_TABLE_LOG2 = 14
+
+
+def probe_plan(m: int, table_log2: int | None = None) -> tuple[int, int]:
+    """(s, table entries) of the kernel for ``m`` right keys: the least
+    ``s`` with ``ceil(m / 2^s) <= 2^table_log2`` (by default the kernel's
+    ``PROBE_TABLE_LOG2``), and that ceiling."""
+    if table_log2 is None:
+        table_log2 = PROBE_TABLE_LOG2
+    s = max(max(m - 1, 0).bit_length() - table_log2, 0)
+    return s, (((m - 1) >> s) + 1 if m else 0)
+
+
+def probe_staged(l_keys: torch.Tensor, r_sorted: torch.Tensor,
+                 table_log2: int | None = None):
+    """Test-only model of the kernel's staged search (never on the main
+    path): the count of splitters below each key, the halving steps in its
+    window with the key at the lower bound carried out, and the gallop to
+    the upper bound.  The table is modelled in sorted order; the kernel's
+    tree holds the same splitters, and its descent gives the same count
+    and carried key.  Returns ``(lo, hi, loads)``: int32 bounds and, per
+    key, the right keys read from device memory after the table load (0
+    throughout when the table holds every key)."""
+    n, m = l_keys.shape[0], r_sorted.shape[0]
+    s, table = probe_plan(m, table_log2)
+    key = l_keys.to(torch.int64)
+    r = r_sorted.to(torch.int64)
+    tab = r[::1 << s]
+    loads = torch.zeros(n, dtype=torch.int64)
+    if table == 0:
+        zero = torch.zeros(n, dtype=torch.int32)
+        return zero, zero.clone(), loads
+
+    def at(src, i):
+        return src[i.clamp(0, src.shape[0] - 1)]
+
+    # 1. the count of splitters below each key
+    c = torch.zeros(n, dtype=torch.int64)
+    step = 1 << (table.bit_length() - 1)
+    while step:
+        i = c + step - 1
+        c += torch.where((i < table) & (at(tab, i) < key), step, 0)
+        step >>= 1
+    # 2. halving steps in the window (pos, end]
+    pos = torch.where(c > 0, (c - 1) << s, -1)
+    end = torch.where(c > 0, torch.clamp(c << s, max=m), 0)
+    ub = torch.where(c < table, at(tab, c), 0)
+    for st in range(s - 1, -1, -1):
+        p = pos + (1 << st)
+        inw = p < end
+        v = at(r, p)
+        loads += inw.long()
+        pos = torch.where(inw & (v < key), p, pos)
+        ub = torch.where(inw & (v >= key), v, ub)
+    lo = pos + 1
+    # 3. the gallop from the lower bound, then halving over the last gap
+    run = (lo < m) & (ub == key)
+    live, gal = run.clone(), torch.ones(n, dtype=torch.bool)
+    span = torch.ones(n, dtype=torch.int64)
+    pos = lo.clone()
+    while bool(live.any()):
+        p = pos + span
+        ok = live & (p < m) & (at(r, p) <= key)
+        if s:
+            loads += (live & (p < m)).long()
+        pos = torch.where(ok, p, pos)
+        span = torch.where(live, torch.where(gal & ok, span << 1, span >> 1),
+                           span)
+        gal &= ok | ~live
+        live &= span != 0
+    hi = torch.where(run, pos + 1, lo)
+    return lo.to(torch.int32), hi.to(torch.int32), loads
 
 
 def probe_sorted_plain(l_keys: torch.Tensor, r_sorted: torch.Tensor
@@ -48,10 +126,17 @@ def probe_sorted(l_keys: torch.Tensor, r_sorted: torch.Tensor
     hi = torch.empty(n, dtype=torch.int32, device=l_keys.device)
     if n == 0:
         return lo, hi
+    # scratch for the table's tree (2^ceil(log2 table) slots) when the
+    # table is not the whole right array
+    s, table = probe_plan(m)
+    tree = torch.empty(1 << max(table - 1, 0).bit_length() if s else 0,
+                       dtype=torch.int64, device=l_keys.device)
     lib = _build.library("probe_sorted")
     _build.check(lib.probe_sorted_i64(
         l_keys.data_ptr(), n, r_sorted.data_ptr(), m, lo.data_ptr(),
-        hi.data_ptr(), torch.cuda.current_stream(l_keys.device).cuda_stream),
+        hi.data_ptr(), tree.data_ptr(), tree.shape[0],
+        torch.cuda.current_stream(l_keys.device).cuda_stream),
         "probe_sorted")
     kernels.LAUNCHES["probe_sorted"] += 1
+    kernels.count_search_size("probe_sorted", n, m)
     return lo, hi

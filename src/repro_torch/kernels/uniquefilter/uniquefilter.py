@@ -3,10 +3,12 @@
 Port of the reference ``kernels/uniquefilter/uniquefilter.py``
 ``unique_mask_sorted`` (paper §2.4 deduplication): on a *sorted* array an
 element is first of its run iff it differs from its predecessor.  The
-kernel (``csrc/unique_mask.cu``) runs one thread per element and reads
-the predecessor straight from device memory, so the Pallas kernel's
-block padding and previous-tile input have no counterpart; the contract
-that only lanes ``< n`` count is kept.
+kernel (``csrc/unique_mask.cu``) gives each thread eight consecutive
+keys and takes the key before them from the neighbouring lane, so the
+Pallas kernel's block padding and previous-tile input have no
+counterpart; the contract that only lanes ``< n`` count is kept.  A
+contiguous input that starts 8 bytes past a 16-byte boundary (``x[1:]``)
+is taken as it is.
 """
 
 from __future__ import annotations
@@ -47,4 +49,5 @@ def unique_mask_sorted(x: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream),
         "unique_mask_sorted")
     kernels.LAUNCHES["unique_mask_sorted"] += 1
+    kernels.count_search_size("unique_mask_sorted", n)
     return mask

@@ -142,16 +142,70 @@ def test_cuda_bitonic_sort_kv_boundaries(cuda, n):
     assert kernels.LAUNCHES["bitonic_sort_kv"] == before + 1
 
 
+I64 = np.iinfo(np.int64)
+
+
+def probe_case(form: str, n: int, m: int, salt=()):
+    """(left keys, sorted right keys) of one of the forms the engine gives
+    the probe; ``tests/test_torch_probe_plan.py`` uses them too."""
+    r = rng("probe", form, n, m, *salt)
+    if form == "dense":  # many matches, keys inside and outside
+        right = np.sort(r.randint(0, 190, m))
+        left = r.randint(-5, 200, n)
+    elif form == "random":  # runs of 1-3, keys inside and outside
+        right = np.sort(r.randint(0, max(m // 2, 1), m))
+        left = r.randint(-3, max(m // 2, 1) + 3, n)
+    elif form == "one_run":  # a single run of length m
+        right = np.full(m, 7)
+        left = r.choice([6, 7, 8], n)
+    elif form == "join_pads":  # left pads INT64_MAX, right pads INT64_MIN
+        right = r.randint(0, 20, m)
+        right[m // 2:] = I64.min
+        right = np.sort(right)
+        left = r.randint(-2, 22, n)
+        left[n - n // 3:] = I64.max
+    elif form == "batch_probe":  # an INT64_MAX tail on the right buffer
+        real = max(m // 3, 1)
+        right = np.concatenate([np.sort(r.randint(0, 40, real)),
+                                np.full(m - real, I64.max)])[:m]
+        left = r.randint(-1, 41, n)
+        left[n // 2:] = I64.max
+    elif form == "outside":  # every key below or above every right key
+        right = np.sort(r.randint(100, 200, m))
+        left = np.where(r.rand(n) < 0.5, r.randint(I64.min, 100, n),
+                        r.randint(200, I64.max, n))
+    else:
+        raise ValueError(form)
+    return left.astype(np.int64), right.astype(np.int64)
+
+
+# the kernel's table holds 2^14 splitters: m on each side of it and of its
+# double; n not a multiple of the keys a thread takes
+PROBE_TABLE = 1 << 14
+PROBE_SHAPES = [
+    ("dense", 1, 1), ("dense", 1000, 37), ("dense", 5000, 1 << 14),
+    ("dense", 3, 1), ("random", 4097, PROBE_TABLE - 1),
+    ("random", 4097, PROBE_TABLE), ("random", 4099, PROBE_TABLE + 1),
+    ("random", 30001, 2 * PROBE_TABLE + 1), ("random", 1 << 20, 1 << 21),
+    ("one_run", 4097, PROBE_TABLE + 1), ("one_run", 999, 1 << 21),
+    ("outside", 5001, 1 << 18), ("join_pads", 4097, PROBE_TABLE - 1),
+    ("join_pads", 1 << 21, 1 << 21), ("batch_probe", 4097, PROBE_TABLE + 1),
+    ("batch_probe", 1 << 21, 1 << 21)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(1, 1), (1000, 37), (5000, 1 << 14)])
-def test_cuda_probe_equals_plain(cuda, n, m):
-    r = rng("cprobe", n, m)
-    lk = T(r.randint(-5, 200, n).astype(np.int64)).to(cuda)
-    rs = T(np.sort(r.randint(0, 190, m)).astype(np.int64)).to(cuda)
+@pytest.mark.parametrize("form,n,m", PROBE_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "left[1:]"])
+def test_cuda_probe_equals_plain(cuda, form, n, m, offset):
+    left, right = probe_case(form, n + offset, m)
+    lk = T(left).to(cuda)[offset:]  # offset 1: 8 bytes past 16-aligned
+    rs = T(right).to(cuda)
+    before = kernels.LAUNCHES["probe_sorted"]
     lo, hi = probe_sorted(lk, rs)
     plo, phi = probe_sorted_plain(lk, rs)
     torch.cuda.synchronize()
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    assert kernels.LAUNCHES["probe_sorted"] == before + 1
 
 
 @pytest.mark.cuda
@@ -169,13 +223,16 @@ def test_cuda_merge_ranks_equals_plain(cuda, n, m, side_right):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 1000, 1 << 16, (1 << 21) + 3])
-def test_cuda_unique_mask_equals_plain(cuda, n):
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 31, 33, 1000, 4097, 1 << 16,
+                               (1 << 21) + 3])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "x[1:]"])
+def test_cuda_unique_mask_equals_plain(cuda, n, offset):
     r = rng("cuniq", n)
-    x = np.sort(r.randint(0, max(n // 8, 1), n)).astype(np.int64)
+    x = np.sort(r.randint(0, max(n // 8, 1), n + offset)).astype(np.int64)
     if n >= 4:  # the int64 extremes at both ends
         x[0], x[-1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
-    xt = T(x).to(cuda)
+    # offset 1: a contiguous view 8 bytes past a 16-byte boundary
+    xt = T(x).to(cuda)[offset:]
     before = kernels.LAUNCHES["unique_mask_sorted"]
     got = unique_mask_sorted(xt)
     torch.cuda.synchronize()

@@ -90,16 +90,17 @@ def ptxas_table(log: str) -> list:
     return rows
 
 
-def build(sources: dict, out_dir: Path) -> dict:
-    """{name: source text} -> {name: (library path, ptxas table)}."""
+def build(sources: dict, out_dir: Path, stem: str = "bitonic_sort") -> dict:
+    """{name: source text} -> {name: (library path, ptxas table)}; the
+    files are named ``{stem}-{name}``."""
     from repro_torch.kernels import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        src = out_dir / f"bitonic_sort-{name}.cu"
+        src = out_dir / f"{stem}-{name}.cu"
         src.write_text(text)
-        lib = out_dir / f"libbitonic-{name}.so"
+        lib = out_dir / f"lib{stem}-{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
