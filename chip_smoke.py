@@ -47,12 +47,19 @@ Phases, each fatal on failure:
    fused cross-tile launches and the later tile launches
    (``torch.profiler``); the probe at m = 2^10 .. 2^21 right keys (n =
    m / 2) and at the engine's shapes beside two ``torch.searchsorted``
-   calls and the unique mask at 2^13 .. 2^21 keys beside ``torch.ne``,
-   each checked bit for bit;
+   calls, the unique mask at 2^13 .. 2^21 keys beside ``torch.ne``, and
+   the merge ranks at every merge shape the engine phase gave them, each
+   launch apart beside one ``torch.searchsorted`` call (``rank_size``
+   rows), each checked bit for bit; ``ssd_intra``'s gram pass timed
+   apart (``gram_ms``);
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
    inputs (``simt_ms``) and counts the LM phase's launches by route;
+   the merge ranks' row times its two launches apart (``left_ms``,
+   ``right_ms``); ``ssd_intra``'s row carries its gram pass
+   (``gram_ms``) and the bound at the float32 rate without tensor cores
+   (``bound_old_ms``) beside the TF32 one;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
@@ -78,6 +85,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM non-tensor-core float32 peak, the
 #                             table's only rate for scalar (non-matrix) ops
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 
 
 def fail(msg: str) -> None:
@@ -139,7 +147,7 @@ def max_abs_err(torch, pairs) -> int:
 # kinds of cross-tile launch), and those of the engine's other kernels
 SORT_KERNELS = ("tile_network", "cross_fused", "cross_smem")
 OUR_KERNELS = (*SORT_KERNELS, "probe_splitters", "probe_gather",
-               "rank_kernel", "unique_mask_vec")
+               "rank_splitters", "rank_gather", "unique_mask_vec")
 
 
 def is_sort_kernel(name: str) -> bool:
@@ -328,7 +336,62 @@ def search_detail(torch, rng, reps: int, probe_sizes=PROBE_SIZES,
     return rows
 
 
-def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
+def rank_detail(torch, rng, reps: int, shapes) -> list:
+    """``merge_ranks`` at each (run lanes, delta lanes) of ``shapes`` (the
+    index-mirror merges the engine phase ran): both runs sorted, as the
+    merge gives them, each launch timed apart (the run ranked into the
+    delta, side left; the delta into the run, side right) beside one
+    ``torch.searchsorted`` call each, with the tree the plan takes and
+    the bound; at the largest shape also the run's keys in random order
+    (``x_order``), which the kernel must take as well.  Bit checks against
+    the plain version."""
+    import numpy as np
+
+    from repro_torch.kernels.mergejoin.mergejoin import merge_ranks_plan
+    from repro_torch.kernels.sortmerge.sortmerge import (merge_ranks,
+                                                         merge_ranks_plain)
+
+    rows = []
+    cases = [(cap, dcap, "sorted") for cap, dcap in shapes]
+    cases.append((*max(shapes), "random"))
+    for cap, dcap, order in cases:
+        base, drun = (torch.tensor(np.sort(rng.randint(
+            0, 1 << 52, k, dtype=np.int64)), device="cuda")
+            for k in (cap, dcap))
+        # random: the run's keys shuffled where they are the searched keys
+        xs = (base[torch.randperm(cap, device="cuda")] if order == "random"
+              else base)
+        row = {"rank_size": "merge_ranks", "run": cap, "delta": dcap,
+               "x_order": order}
+        for side, x, other in (("left", xs, drun), ("right", drun, base)):
+            right = side == "right"
+            s, table = merge_ranks_plan(x.shape[0], other.shape[0])
+            row[side] = {
+                "n": x.shape[0], "m": other.shape[0], "s": s,
+                "table": table,
+                "max_abs_err": max_abs_err(torch, [(
+                    merge_ranks(x, other, right),
+                    merge_ranks_plain(x, other, right))]),
+                "kernel_ms": time_ms(
+                    torch, lambda: merge_ranks(x, other, right), reps),
+                "library_ms": time_ms(
+                    torch, lambda: torch.searchsorted(other, x, right=right),
+                    reps),
+                "bound_ms": bound_ms(12 * x.shape[0] + 8 * other.shape[0],
+                                     0)[0]}
+        row["kernel_ms"] = row["left"]["kernel_ms"] + row["right"]["kernel_ms"]
+        row["library_ms"] = (row["left"]["library_ms"]
+                             + row["right"]["library_ms"])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    for row in rows:
+        if row["left"]["max_abs_err"] or row["right"]["max_abs_err"]:
+            fail(f"merge_ranks at ({row['run']}, {row['delta']}, "
+                 f"{row['x_order']}): kernel and plain version differ")
+    return rows
+
+
+def kernel_phase(torch, seed: int, reps: int, merge_shapes) -> dict:
     import numpy as np
 
     from repro_torch import kernels
@@ -408,7 +471,7 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
     # resident tagged run of `cap` lanes against a sorted delta run of
     # `dcap` lanes (left side), and the delta run against the resident
     # run (right side), at the largest (cap, dcap) of the engine phase
-    cap, dcap = merge_shape
+    cap, dcap = max(merge_shapes)
     base, drun = (torch.tensor(np.sort(rng.randint(0, 1 << 52, k,
                                                    dtype=np.int64)),
                                device=dev)
@@ -423,6 +486,12 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
         "shape": [cap, dcap], "dtype": "int64",
         "max_abs_err": max_abs_err(torch, zip(got, want)),
         "kernel_ms": time_ms(torch, lambda: ranks(merge_ranks), reps),
+        # the two launches apart: the run ranked into the delta (side
+        # left) and the delta ranked into the run (side right)
+        "left_ms": time_ms(torch, lambda: merge_ranks(base, drun, False),
+                           reps),
+        "right_ms": time_ms(torch, lambda: merge_ranks(drun, base, True),
+                            reps),
         "plain_ms": time_ms(torch, lambda: ranks(merge_ranks_plain), reps),
         "library_ms": time_ms(
             torch, lambda: (torch.searchsorted(drun, base),
@@ -458,6 +527,7 @@ def kernel_phase(torch, seed: int, reps: int, merge_shape) -> dict:
 
     sort_detail(torch, rng, reps)
     search_detail(torch, rng, reps)
+    rank_detail(torch, rng, reps, merge_shapes)
     out.update(lm_kernel_rows(torch, rng, reps))
 
     # the launches above compare and time the kernels; they are not the
@@ -496,7 +566,9 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_plain, launch_route)
-    from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd.ssd import (gram_scratch, ssd_intra,
+                                             ssd_intra_plain)
 
     dev = "cuda"
     out = {}
@@ -582,24 +654,39 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
             for g, w, t, what in ((y, yp, tols[0], "y"),
                                   (st, sp, tols[1], "state"))]
     tri = Q * (Q + 1) // 2
+    gram = gram_scratch(b, nc, Q, dev)
+    lib = _build.library("ssd_intra")
+
+    def gram_pass():
+        _build.check(lib.ssd_gram_f32(
+            Bm.data_ptr(), Cm.data_ptr(), b, nc, Q, N, gram.data_ptr(),
+            gram.shape[0], torch.cuda.current_stream().cuda_stream),
+            "ssd_gram")
+    # bytes: cum, u, B, C read once, y and the states written once;
+    # operations the function needs (2 per multiply-add): the gram
+    # C.B^T's lower triangle once per (b, c), and per head the decay (exp
+    # of a difference, times the gram), M u over the triangle, the state
+    # weights and the state product u^T B
+    nbytes = 4 * (b * nc * Q * nh + 2 * b * nc * Q * nh * hp
+                  + 2 * b * nc * Q * N + b * nc * nh * hp * N)
+    ops = b * nc * (tri * N * 2 + nh * (tri * 2 + tri * hp * 2 + Q * hp
+                                        + Q * hp * N * 2))
     out["ssd_intra"] = {
         "shape": [b, nc, Q, nh, hp, N], "dtype": "float32",
         "max_abs_err": max(errs), "tolerance": max(tols),
         "kernel_ms": time_ms(torch, lambda: ssd_intra(cum, u, Bm, Cm), reps),
+        # the gram pass alone (the kernel's first launch)
+        "gram_ms": time_ms(torch, gram_pass, reps),
         "plain_ms": time_ms(torch, lambda: ssd_intra_plain(cum, u, Bm, Cm),
                             reps),
         "library_ms": None, "library_call": None,
-        # bytes: cum, u, B, C read once, y and the states written once;
-        # operations the function needs (2 per multiply-add): the gram
-        # C.B^T's lower triangle once per (b, c), and per head the decay
-        # (exp of a difference, times the gram), M u over the triangle,
-        # the state weights and the state product u^T B; float32 peak
-        # without tensor cores, as the function is float32
-        "bound": bound_ms(
-            4 * (b * nc * Q * nh + 2 * b * nc * Q * nh * hp
-                 + 2 * b * nc * Q * N + b * nc * nh * hp * N),
-            b * nc * (tri * N * 2 + nh * (tri * 2 + tri * hp * 2 + Q * hp
-                                           + Q * hp * N * 2)))}
+        # the kernel runs the work as three TF32 tensor-core products
+        # (split float32), so the operations count three times at the TF32
+        # peak
+        "bound": bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S),
+        # the old yardstick: the same work at the float32 peak without
+        # tensor cores
+        "bound_old_ms": bound_ms(nbytes, ops)[0]}
     return out
 
 
@@ -771,7 +858,7 @@ def engine_phase(torch, scale: int, seed: int):
             fail(f"kernel {name} never launched on the path")
     device_profile(torch, facts, "infer1", {"compress": False})
     device_profile(torch, facts, "infer1", {"compress": True})
-    return launches, max(shapes)
+    return launches, sorted(set(shapes))
 
 
 def add_sizes(sizes: dict, counts: dict) -> None:
@@ -1100,10 +1187,10 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_library_s": secs}), flush=True)
 
-    launches, merge_shape = engine_phase(torch, args.scale, args.seed)
+    launches, merge_shapes = engine_phase(torch, args.scale, args.seed)
     launches.update(lm_phase(torch, args.seed, LM_BATCH, LM_SEQ,
                              LM_STEPS))
-    rows = kernel_phase(torch, args.seed, args.reps, merge_shape)
+    rows = kernel_phase(torch, args.seed, args.reps, merge_shapes)
 
     line = []
     for k in KERNELS:
@@ -1114,6 +1201,11 @@ def main() -> int:
             extra = {"routes": {"wgmma": n_tc,
                                 "simt": launches["flash_attention"] - n_tc},
                      "simt_ms": r["simt_ms"]}
+        elif k["name"] == "merge_ranks":  # the two launches apart
+            extra = {"left_ms": r["left_ms"], "right_ms": r["right_ms"]}
+        elif k["name"] == "ssd_intra":  # the gram pass, the old yardstick
+            extra = {"gram_ms": r["gram_ms"],
+                     "bound_old_ms": r["bound_old_ms"]}
         line.append({**k, "status": "ported and checked",
                      "launches": launches[k["name"]],
                      "max_abs_err": r["max_abs_err"],

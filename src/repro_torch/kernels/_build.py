@@ -34,7 +34,7 @@ SOURCES = {
         "probe_sorted_i64": "pipippip",
     }),
     "merge_ranks": ("merge_ranks.cu", {
-        "merge_ranks_i64": "pipiipp",
+        "merge_ranks_i64": "pipiippip",
     }),
     "unique_mask": ("unique_mask.cu", {
         "unique_mask_i64": "pipp",
@@ -49,7 +49,8 @@ SOURCES = {
         "flash_attention_tc_f16": "pppp" + "i" * 9 + "p",
     }),
     "ssd_intra": ("ssd_intra.cu", {
-        "ssd_intra_f32": "pppppp" + "i" * 6 + "p",
+        "ssd_intra_f32": "pppppp" + "i" * 6 + "pip",
+        "ssd_gram_f32": "pp" + "i" * 4 + "pip",
     }),
 }
 
@@ -74,10 +75,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the headers
+    beside it (``*.cuh``, which a source may include) and the flags."""
     src = CSRC / SOURCES[name][0]
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, float]:
@@ -92,7 +96,8 @@ def build_all() -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
     secs = {name: 0.0 for name in SOURCES}

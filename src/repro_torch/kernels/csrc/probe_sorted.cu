@@ -27,12 +27,15 @@
 //   bank (up to 32-way conflicts at 10 of the 14 levels).  For s > 0 a
 //   small pre-kernel (`probe_gather`) writes the tree to scratch once, so
 //   that each block copies it with coalesced reads; for s = 0 each block
-//   builds it from the right array.  The grid is sized to the card (SMs x
-//   resident blocks, from the occupancy API, queried once per device and
-//   tree height); each block loads the tree once and strides over the
-//   left keys.  When m fits the table (s = 0) the tree holds the whole
-//   right array and the whole search, the upper bound included, runs in
-//   shared memory.
+//   builds it from the right array, one strided load a slot (at n = 2^12,
+//   m = 2^13 this measured 0.0100 ms against 0.0113 for coalesced reads
+//   stored at scattered slots).  The tree, its descent and the window
+//   steps live in splitter_tree.cuh, shared with merge_ranks.cu.  The
+//   grid is sized to the card (SMs x resident blocks, from the occupancy
+//   API, queried once per device and tree height); each block loads the
+//   tree once and strides over the left keys.  When m fits the table (s =
+//   0) the tree holds the whole right array and the whole search, the
+//   upper bound included, runs in shared memory.
 // - Lower bound: the descent counts the splitters below the key, which
 //   narrows it to one aligned window of 2^s right keys (128 at m = 2^21);
 //   s halving steps in device memory finish it.  The right key at the
@@ -62,29 +65,16 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "splitter_tree.cuh"
+
 namespace {
 
 constexpr int PROBE_THREADS = 1024;    // threads per block
 constexpr int PROBE_TABLE_LOG2 = 14;   // most table entries, log2 (128 KB)
 
-static_assert(PROBE_TABLE_LOG2 >= 0 && PROBE_TABLE_LOG2 <= 14,
+static_assert(PROBE_TABLE_LOG2 >= 0 &&
+                  PROBE_TABLE_LOG2 <= splitter_tree::MAX_H,
               "the table fits one block's shared memory");
-constexpr int MAX_DEVICES = 64;
-
-// The table is a complete binary search tree of the splitters right[j<<s],
-// j = 1 .. table-1, in breadth-first (Eytzinger) order: slot k in [1, 2^h)
-// holds the splitter of in-order index j(k), slots past the last splitter
-// hold LLONG_MAX (never below a key), and slot 0 holds right[0].  A level
-// of the descent then reads 2^d neighbouring slots, not 2^d slots a power
-// of two apart, so the lanes of a warp do not pile onto one bank.
-__device__ __forceinline__ long long tree_slot(const long long* right, int s,
-                                               int table, int h, int k) {
-  if (k == 0) return __ldg(right);
-  const int d = 31 - __clz(k);
-  const int j = (2 * (k - (1 << d)) + 1) << (h - 1 - d);
-  return j < table ? __ldg(right + (static_cast<int64_t>(j) << s))
-                   : LLONG_MAX;
-}
 
 // Right key i: from the tree when it holds every key (s = 0), else from
 // device memory.
@@ -93,10 +83,7 @@ __device__ __forceinline__ long long right_at(const long long* tab,
                                               bool in_smem, int h,
                                               int64_t i) {
   if (!in_smem) return __ldg(right + i);
-  const int j = static_cast<int>(i);
-  if (j == 0) return tab[0];
-  const int z = __ffs(j) - 1;
-  return tab[(1 << (h - 1 - z)) + (j >> (z + 1))];
+  return tab[splitter_tree::slot_of(static_cast<int>(i), h)];
 }
 
 // The tree in device memory, for s > 0: one strided pass, so that every
@@ -104,7 +91,7 @@ __device__ __forceinline__ long long right_at(const long long* tab,
 __global__ void probe_gather(const long long* __restrict__ right, int s,
                              int table, int h, long long* __restrict__ tree) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < (1 << h)) tree[k] = tree_slot(right, s, table, h, k);
+  if (k < (1 << h)) tree[k] = splitter_tree::tree_slot(right, s, table, h, k);
 }
 
 // tree: probe_gather's output when s > 0 (null when s = 0: each block
@@ -115,52 +102,22 @@ probe_splitters(const long long* __restrict__ left, int64_t n,
                 const long long* __restrict__ tree, int table, int h,
                 int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out) {
   extern __shared__ long long tab[];
-  const int slots = table ? 1 << h : 0;
-  for (int k = threadIdx.x; k < slots; k += blockDim.x)
-    tab[k] = tree ? __ldg(tree + k) : tree_slot(right, s, table, h, k);
-  __syncthreads();
+  splitter_tree::load_tree(tab, right, s, table, h, tree);
   const bool in_smem = s == 0;
-  const long long first = table ? tab[0] : 0;  // right[0]
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
     const long long key = __ldg(left + i);
 
-    // 1. the count c of splitters below the key, by descending the tree:
-    // the path's right turns spell c - 1 in binary (c = 0 when right[0] is
-    // not below the key), and the last left turn's splitter is the first
-    // one at or above the key
-    int c = 1;
-    long long ub = first;
-    for (int d = 0; d < h; ++d) {
-      const long long v = tab[c];
-      const bool below = v < key;
-      if (!below) ub = v;
-      c = 2 * c + below;
-    }
-    if (table && first < key) {
-      c = c - (1 << h) + 1;
-    } else {
-      c = 0;
-      ub = first;
-    }
-
-    // 2. halving steps in the window: right[pos] < key (or pos = -1) and
-    // the lower bound lies in (pos, end]; ub is the right key at the lower
-    // bound once known (the next splitter, then the last failed probe).
-    // Positions fit 32 bits (m < 2^31); p is formed in 64.
-    const int64_t wend = static_cast<int64_t>(c) << s;
-    int32_t pos = c ? static_cast<int32_t>(wend - (int64_t(1) << s)) : -1;
-    const int32_t end = static_cast<int32_t>(c ? (wend < m ? wend : m) : 0);
-    for (int st = s - 1; st >= 0; --st) {
-      const int64_t p = pos + (int64_t(1) << st);
-      if (p < end) {
-        const long long v = __ldg(right + p);
-        if (v < key) pos = static_cast<int32_t>(p); else ub = v;
-      }
-    }
-    const int32_t lo = pos + 1;
+    // 1-2. the lower bound: the tree's descent, then halving steps in the
+    // window; ub is the right key at the lower bound once known (the
+    // first splitter at or above the key, then the last failed probe)
+    long long ub = 0;
+    const int c = splitter_tree::descend<false, true>(tab, table, h, key,
+                                                      &ub);
+    const int32_t lo =
+        splitter_tree::window<false, true>(right, m, s, c, key, &ub);
 
     // 3. the upper bound by galloping from the lower bound, when the run
     // is not empty: a is the last position known to hold a key <= the
@@ -185,41 +142,7 @@ probe_splitters(const long long* __restrict__ left, int64_t n,
   }
 }
 
-// Per device: SM count (the dynamic shared memory limit is set with it),
-// and resident blocks per SM by the tree's height.
-struct DeviceInfo {
-  int sms = 0;
-  int blocks[PROBE_TABLE_LOG2 + 1] = {};
-};
-DeviceInfo g_info[MAX_DEVICES];
-
-cudaError_t device_info(int dev, int h, int* sms, int* blocks) {
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  DeviceInfo& d = g_info[dev];
-  cudaError_t err = cudaSuccess;
-  if (d.sms == 0) {
-    const int most = static_cast<int>(sizeof(long long)) << PROBE_TABLE_LOG2;
-    err = cudaFuncSetAttribute(probe_splitters,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               most);
-    int count = 0;
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return err;
-    d.sms = count;
-  }
-  if (d.blocks[h] == 0) {
-    int b = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, probe_splitters, PROBE_THREADS, sizeof(long long) << h);
-    if (err != cudaSuccess) return err;
-    d.blocks[h] = b > 0 ? b : 1;
-  }
-  *sms = d.sms;
-  *blocks = d.blocks[h];
-  return cudaSuccess;
-}
+splitter_tree::Occupancy g_occupancy;
 
 }  // namespace
 
@@ -232,11 +155,8 @@ int probe_sorted_i64(const void* left, int64_t n, const void* right,
                      int64_t m, void* lo, void* hi, void* tree,
                      int64_t tree_len, void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  int s = 0;
-  while (m > 0 && ((m - 1) >> s) + 1 > (int64_t(1) << PROBE_TABLE_LOG2)) ++s;
-  const int table = m > 0 ? static_cast<int>(((m - 1) >> s) + 1) : 0;
-  int h = 0;
-  while ((1 << h) < table) ++h;
+  const splitter_tree::Plan plan = splitter_tree::plan(m, PROBE_TABLE_LOG2);
+  const int s = plan.s, table = plan.table, h = plan.h;
   if (s > 0 && tree_len < (int64_t(1) << h))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -247,9 +167,9 @@ int probe_sorted_i64(const void* left, int64_t n, const void* right,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = device_info(dev, h, &sms, &per_sm);
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = splitter_tree::occupancy(
+      g_occupancy, probe_splitters, PROBE_THREADS, h, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t blocks = (n + PROBE_THREADS - 1) / PROBE_THREADS;
   if (blocks > static_cast<int64_t>(sms) * per_sm)

@@ -8,6 +8,9 @@ in shared memory, finishes the lower bound in one window of ``2^s`` keys
 in device memory and gallops from it to the upper bound.  ``probe_plan``
 gives ``s`` and the table's size (the wrapper allocates the table's
 scratch by it); ``probe_staged`` mirrors the staging for the CPU tests.
+The rank kernel of ``sortmerge.merge_ranks`` searches the same tree
+(``csrc/splitter_tree.cuh``) for one bound; ``merge_ranks_plan`` and
+``merge_ranks_staged`` mirror it.
 The plain version is the Pallas kernel's branch-free search —
 ``log2(m) + 1`` masked halving steps over all left keys at once.
 """
@@ -35,48 +38,85 @@ def probe_plan(m: int, table_log2: int | None = None) -> tuple[int, int]:
     return s, (((m - 1) >> s) + 1 if m else 0)
 
 
+# the rank kernel's tree (the RANK_* constants of csrc/merge_ranks.cu):
+# its most slots, log2, and the smaller tree it takes for few keys
+RANK_TABLE_LOG2 = 14
+RANK_SMALL_N_LOG2 = 13
+RANK_SMALL_TABLE_LOG2 = 8
+
+
+def merge_ranks_plan(n: int, m: int, table_log2: int | None = None
+                     ) -> tuple[int, int]:
+    """(s, table entries) of the rank kernel for ``n`` keys against ``m``
+    sorted keys: ``probe_plan`` at the tree size the kernel takes for
+    ``n`` (``RANK_SMALL_TABLE_LOG2`` slots at most when ``n <=
+    2^RANK_SMALL_N_LOG2``, where each block loads its tree itself, else
+    ``RANK_TABLE_LOG2``, gathered once into scratch when ``s > 0``), or
+    at ``table_log2`` when given."""
+    if table_log2 is None:
+        table_log2 = (RANK_SMALL_TABLE_LOG2 if n <= 1 << RANK_SMALL_N_LOG2
+                      else RANK_TABLE_LOG2)
+    return probe_plan(m, table_log2)
+
+
+def _before(v, key, side_right: bool):
+    return (v <= key) if side_right else (v < key)
+
+
+def _at(src, i):
+    return src[i.clamp(0, src.shape[0] - 1)]
+
+
+def _tree_window(key, r, s: int, table: int, side_right: bool, loads):
+    """Stages 1-2 of the kernels' search (csrc/splitter_tree.cuh), for
+    ``table > 0``: the count of splitters ``r[j << s]`` before each key
+    (``< key``, or ``<= key`` for side right), then ``s`` halving steps in
+    its window.  The tree is modelled in sorted order; the kernel's holds
+    the same splitters, and its descent gives the same count and carried
+    key.  Returns the count of ``r``'s keys before each key and the right
+    key the search carries out (the first one not before the key, where it
+    read one); adds each key's device-memory loads to ``loads``."""
+    n, m = key.shape[0], r.shape[0]
+    tab = r[::1 << s]
+    c = torch.zeros(n, dtype=torch.int64)
+    step = 1 << (table.bit_length() - 1)
+    while step:
+        i = c + step - 1
+        c += torch.where((i < table) & _before(_at(tab, i), key, side_right),
+                         step, 0)
+        step >>= 1
+    pos = torch.where(c > 0, (c - 1) << s, -1)
+    end = torch.where(c > 0, torch.clamp(c << s, max=m), 0)
+    ub = torch.where(c < table, _at(tab, c), 0)
+    for st in range(s - 1, -1, -1):
+        p = pos + (1 << st)
+        inw = p < end
+        v = _at(r, p)
+        go = _before(v, key, side_right)
+        loads += inw.long()
+        pos = torch.where(inw & go, p, pos)
+        ub = torch.where(inw & ~go, v, ub)
+    return pos + 1, ub
+
+
 def probe_staged(l_keys: torch.Tensor, r_sorted: torch.Tensor,
                  table_log2: int | None = None):
     """Test-only model of the kernel's staged search (never on the main
     path): the count of splitters below each key, the halving steps in its
     window with the key at the lower bound carried out, and the gallop to
-    the upper bound.  The table is modelled in sorted order; the kernel's
-    tree holds the same splitters, and its descent gives the same count
-    and carried key.  Returns ``(lo, hi, loads)``: int32 bounds and, per
+    the upper bound.  Returns ``(lo, hi, loads)``: int32 bounds and, per
     key, the right keys read from device memory after the table load (0
     throughout when the table holds every key)."""
     n, m = l_keys.shape[0], r_sorted.shape[0]
     s, table = probe_plan(m, table_log2)
     key = l_keys.to(torch.int64)
     r = r_sorted.to(torch.int64)
-    tab = r[::1 << s]
     loads = torch.zeros(n, dtype=torch.int64)
     if table == 0:
         zero = torch.zeros(n, dtype=torch.int32)
         return zero, zero.clone(), loads
-
-    def at(src, i):
-        return src[i.clamp(0, src.shape[0] - 1)]
-
-    # 1. the count of splitters below each key
-    c = torch.zeros(n, dtype=torch.int64)
-    step = 1 << (table.bit_length() - 1)
-    while step:
-        i = c + step - 1
-        c += torch.where((i < table) & (at(tab, i) < key), step, 0)
-        step >>= 1
-    # 2. halving steps in the window (pos, end]
-    pos = torch.where(c > 0, (c - 1) << s, -1)
-    end = torch.where(c > 0, torch.clamp(c << s, max=m), 0)
-    ub = torch.where(c < table, at(tab, c), 0)
-    for st in range(s - 1, -1, -1):
-        p = pos + (1 << st)
-        inw = p < end
-        v = at(r, p)
-        loads += inw.long()
-        pos = torch.where(inw & (v < key), p, pos)
-        ub = torch.where(inw & (v >= key), v, ub)
-    lo = pos + 1
+    # 1-2. the lower bound, with the right key there carried out
+    lo, ub = _tree_window(key, r, s, table, False, loads)
     # 3. the gallop from the lower bound, then halving over the last gap
     run = (lo < m) & (ub == key)
     live, gal = run.clone(), torch.ones(n, dtype=torch.bool)
@@ -84,7 +124,7 @@ def probe_staged(l_keys: torch.Tensor, r_sorted: torch.Tensor,
     pos = lo.clone()
     while bool(live.any()):
         p = pos + span
-        ok = live & (p < m) & (at(r, p) <= key)
+        ok = live & (p < m) & (_at(r, p) <= key)
         if s:
             loads += (live & (p < m)).long()
         pos = torch.where(ok, p, pos)
@@ -94,6 +134,25 @@ def probe_staged(l_keys: torch.Tensor, r_sorted: torch.Tensor,
         live &= span != 0
     hi = torch.where(run, pos + 1, lo)
     return lo.to(torch.int32), hi.to(torch.int32), loads
+
+
+def merge_ranks_staged(x: torch.Tensor, other_sorted: torch.Tensor,
+                       side_right: bool = False,
+                       table_log2: int | None = None):
+    """Test-only model of the rank kernel's search (``csrc/merge_ranks.cu``,
+    never on the main path): ``merge_ranks_plan``'s tree, its descent and
+    the ``s`` halving steps in the window, one side's bound only.  Returns
+    ``(ranks, loads)``: int32 ranks and, per key, the keys of
+    ``other_sorted`` read from device memory after the tree load (0
+    throughout when the tree holds every key)."""
+    n, m = x.shape[0], other_sorted.shape[0]
+    s, table = merge_ranks_plan(n, m, table_log2)
+    loads = torch.zeros(n, dtype=torch.int64)
+    if table == 0:
+        return torch.zeros(n, dtype=torch.int32), loads
+    ranks, _ = _tree_window(x.to(torch.int64), other_sorted.to(torch.int64),
+                            s, table, side_right, loads)
+    return ranks.to(torch.int32), loads
 
 
 def probe_sorted_plain(l_keys: torch.Tensor, r_sorted: torch.Tensor

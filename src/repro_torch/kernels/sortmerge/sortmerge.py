@@ -11,7 +11,10 @@ order of tied keys included.
 
 ``merge_ranks`` is the port of the reference's two-run merge rank kernel
 (``csrc/merge_ranks.cu``): the rank of every element of ``x`` in a
-second sorted run, the core of the incremental index-mirror merge.
+second sorted run, the core of the incremental index-mirror merge.  It
+searches the probe's shared-memory splitter tree
+(``mergejoin.merge_ranks_plan`` gives its size, by which the wrapper
+allocates the tree's scratch).
 
 A wrapper given a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version — vectorised XOR-partner compare-exchanges over
@@ -292,10 +295,17 @@ def merge_ranks(x: torch.Tensor, other_sorted: torch.Tensor,
     ranks = torch.empty(n, dtype=torch.int32, device=x.device)
     if n == 0:
         return ranks
+    # scratch for the tree (2^ceil(log2 table) slots) when it is not the
+    # whole other run and many keys share it
+    from repro_torch.kernels.mergejoin import mergejoin
+    s, table = mergejoin.merge_ranks_plan(n, m)
+    gather = s and n > 1 << mergejoin.RANK_SMALL_N_LOG2
+    tree = torch.empty(1 << max(table - 1, 0).bit_length() if gather else 0,
+                       dtype=torch.int64, device=x.device)
     lib = _build.library("merge_ranks")
     _build.check(lib.merge_ranks_i64(
         x.data_ptr(), n, other_sorted.data_ptr(), m, int(side_right),
-        ranks.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream),
-        "merge_ranks")
+        ranks.data_ptr(), tree.data_ptr(), tree.shape[0],
+        torch.cuda.current_stream(x.device).cuda_stream), "merge_ranks")
     kernels.LAUNCHES["merge_ranks"] += 1
     return ranks

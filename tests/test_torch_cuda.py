@@ -208,13 +208,59 @@ def test_cuda_probe_equals_plain(cuda, form, n, m, offset):
     assert kernels.LAUNCHES["probe_sorted"] == before + 1
 
 
+def rank_case(form: str, n: int, m: int, salt=()):
+    """(keys in any order, sorted run) of one of the rank kernel's forms;
+    ``tests/test_torch_rank_plan.py`` uses them too."""
+    r = rng("ranks", form, n, m, *salt)
+    if form == "dups":  # unsorted keys with duplicates, runs in the other
+        other = np.sort(r.randint(0, max(m // 4, 2), m))
+        x = r.randint(-2, max(m // 4, 2) + 2, n)
+    elif form == "pads":  # merge_runs: both runs sorted, INT64_MAX tails
+        real_m, real_n = max(m - m // 3, 1), max(n - n // 4, 1)
+        other = np.concatenate([np.sort(r.randint(0, 50, real_m)),
+                                np.full(m - real_m, I64.max)])
+        x = np.concatenate([np.sort(r.randint(0, 50, real_n)),
+                            np.full(n - real_n, I64.max)])
+    elif form == "extremes":  # keys at and beyond both ends of int64
+        other = np.sort(r.randint(-100, 100, m))
+        other[:1], other[-1:] = I64.min, I64.max
+        x = r.choice([I64.min, I64.max, -100, 0, 99, 100], n)
+    else:
+        raise ValueError(form)
+    return x.astype(np.int64), other.astype(np.int64)
+
+
+# the rank kernel's tree holds 2^14 keys (fewer for n <= 2^13): m on each
+# side of it, below 32, and the engine's largest merge both ways
+RANK_SHAPES = [(1 << 21, 1 << 13), (1 << 13, 1 << 21),
+               ((1 << 13) + 1, 1 << 21), (4097, PROBE_TABLE - 1),
+               (4097, PROBE_TABLE), (4097, PROBE_TABLE + 1), (100, 20),
+               (30001, 2 * PROBE_TABLE + 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("side_right", [False, True], ids=["left", "right"])
-@pytest.mark.parametrize("n,m", [(1, 1), (1000, 37), (5000, 1 << 14)])
+@pytest.mark.parametrize("n,m", [(1, 1), (1000, 37), (5000, 1 << 14),
+                                 *RANK_SHAPES])
 def test_cuda_merge_ranks_equals_plain(cuda, n, m, side_right):
     r = rng("cranks", n, m)
     x = T(r.randint(-5, 200, n).astype(np.int64)).to(cuda)
     other = T(np.sort(r.randint(0, 190, m)).astype(np.int64)).to(cuda)
+    before = kernels.LAUNCHES["merge_ranks"]
+    got = merge_ranks(x, other, side_right=side_right)
+    torch.cuda.synchronize()
+    assert torch.equal(got, merge_ranks_plain(x, other, side_right))
+    assert kernels.LAUNCHES["merge_ranks"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_right", [False, True], ids=["left", "right"])
+@pytest.mark.parametrize("n,m", RANK_SHAPES)
+@pytest.mark.parametrize("form", ["dups", "pads", "extremes"])
+def test_cuda_merge_ranks_forms(cuda, form, n, m, side_right):
+    """Keys in any order with duplicates, INT64_MAX pad tails on both runs
+    (as merge_runs gives them), keys at both ends of int64."""
+    x, other = (T(a).to(cuda) for a in rank_case(form, n, m))
     before = kernels.LAUNCHES["merge_ranks"]
     got = merge_ranks(x, other, side_right=side_right)
     torch.cuda.synchronize()
@@ -432,6 +478,10 @@ def test_cuda_flash_attention_rejects_misaligned(cuda):
 @pytest.mark.parametrize("b,nc,Q,nh,hp,N", [
     (1, 2, 32, 2, 16, 8), (2, 3, 64, 4, 32, 16), (1, 1, 70, 3, 12, 20),
     (1, 2, 256, 4, 64, 128),
+    # mamba2-1.3b's full width, the kernel's hp = 128 instance, N = 64,
+    # and Q = 70 (no row or column tile divides it) at mamba2's widths
+    (2, 8, 256, 64, 64, 128), (1, 2, 256, 4, 128, 128),
+    (1, 2, 256, 4, 64, 64), (1, 2, 70, 4, 64, 128),
 ])
 def test_cuda_ssd_intra_equals_plain(cuda, b, nc, Q, nh, hp, N):
     """Within 1e-4 of max|y| and max|state| (sums over Q and N

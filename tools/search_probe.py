@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time builds of the port's probe and unique-mask kernels on one NVIDIA GPU.
+"""Time builds of the port's probe, unique-mask and merge-rank kernels on one
+NVIDIA GPU.
 
-Usage: ``python3 tools/search_probe.py --kernel probe_sorted|unique_mask
-[--reps R] [--seed S] [--old PATH] [--alt NAME:PATH ...]
-[--variant NAME:CONST=VALUE,... ...]``
+Usage: ``python3 tools/search_probe.py --kernel
+probe_sorted|unique_mask|merge_ranks [--reps R] [--seed S] [--old PATH]
+[--alt NAME:PATH ...] [--variant NAME:CONST=VALUE,... ...]``
 
 Each ``--variant`` is the kernel's source
-(``src/repro_torch/kernels/csrc/probe_sorted.cu`` or ``unique_mask.cu``)
-with some of the ``constexpr int`` constants at its head replaced
-(``NAME:`` alone is the source as it stands); the patched copies are
-written to the probe's build directory, and the source in the tree is
-never changed.  ``--alt NAME:PATH`` adds another source with the same C
-entry point; ``--old PATH`` an earlier design's source (the first probe
-design's entry point took no table scratch).  Every build is made with ``nvcc
--Xptxas -v``, all in parallel.  Then, for each build in turn (``--old``
-first and last), the wrapper is pointed at it and
-``chip_smoke.search_detail`` runs that kernel at its by-size shapes: bit
-checks against the plain version, kernel ms beside the library call's ms
-and the bound.  Prints one JSON line per build and writes them all, with
-each build's register and spill report, to
+(``src/repro_torch/kernels/csrc/probe_sorted.cu``, ``unique_mask.cu`` or
+``merge_ranks.cu``) with some of the ``constexpr int`` constants at its
+head replaced (``NAME:`` alone is the source as it stands); the patched
+copies are written to the probe's build directory (the shared headers are
+found in ``csrc/``), and the source in the tree is never changed.
+``--alt NAME:PATH`` adds another source with the same C entry point;
+``--old PATH`` an earlier design's source (the first probe and rank
+designs' entry points took no tree scratch).  Every build is made with
+``nvcc -Xptxas -v``, all in parallel.  Then, for each build in turn
+(``--old`` first and last), the wrapper is pointed at it (and the Python
+mirror of its tree constants set to the build's) and
+``chip_smoke.search_detail`` runs that kernel at its by-size shapes, or
+``chip_smoke.rank_detail`` the merge ranks at ``RANK_SHAPES``: bit checks
+against the plain version, kernel ms beside the library call's ms and the
+bound.  Prints one JSON line per build and writes them all, with each
+build's register and spill report, to
 ``chiprun_out/search_probe_<kernel>.json``.  Imports nothing of JAX.
 """
 
@@ -38,7 +42,16 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
 OLD_ENTRY = {
     "probe_sorted": ("pipippp",
                      lambda f: lambda *a: f(*a[:6], a[-1])),
+    "merge_ranks": ("pipiipp",
+                    lambda f: lambda *a: f(*a[:6], a[-1])),
 }
+# (run lanes, delta lanes) of the merge-rank rows: the engine's largest
+# index-mirror merge and smaller ones
+RANK_SHAPES = [(1 << 21, 1 << 13), (1 << 20, 1 << 13), (1 << 19, 1 << 12),
+               (1 << 18, 1 << 10)]
+# the merge-rank tree constants the wrapper's plan mirrors
+RANK_MIRROR = ("RANK_TABLE_LOG2", "RANK_SMALL_N_LOG2",
+               "RANK_SMALL_TABLE_LOG2")
 # the trials behind the shipped constants, by library
 VARIANTS = {
     "probe_sorted": [
@@ -54,6 +67,18 @@ VARIANTS = {
         "threads-128:UM_THREADS=128",
         "threads-512:UM_THREADS=512",
         "threads-1024:UM_THREADS=1024",
+    ],
+    # the tree's size for few keys (n <= 2^13: the delta ranked into the
+    # run), down to none (a binary search over device memory), and the
+    # block size
+    "merge_ranks": [
+        "shipped:",
+        "small-6:RANK_SMALL_TABLE_LOG2=6",
+        "small-10:RANK_SMALL_TABLE_LOG2=10",
+        "small-0:RANK_SMALL_TABLE_LOG2=0",
+        "small-128:RANK_SMALL_THREADS=128",
+        "small-1024:RANK_SMALL_THREADS=1024",
+        "threads-512:RANK_THREADS=512",
     ],
 }
 
@@ -100,7 +125,8 @@ def main() -> int:
         sources["old"], values["old"] = args.old.read_text(), {}
         order = ["old", *order, "old"]
     built = build(sources, _build.BUILD_DIR / "search_probe", stem=lib_name)
-    table_log2 = mergejoin.PROBE_TABLE_LOG2
+    mirror = {k: getattr(mergejoin, k) for k in ("PROBE_TABLE_LOG2",
+                                                  *RANK_MIRROR)}
     sizes = ({"unique_sizes": ()} if lib_name == "probe_sorted"
              else {"probe_sizes": ()})
 
@@ -114,20 +140,26 @@ def main() -> int:
             fn.argtypes = [_build._ARG[k] for k in kinds]
             lib = types.SimpleNamespace(**{fn_name: call(fn)})
         _build._LIBS[lib_name] = lib
-        if lib_name == "probe_sorted":  # the wrapper sizes the scratch by it
-            mergejoin.PROBE_TABLE_LOG2 = values[name].get(
-                "PROBE_TABLE_LOG2", table_log2)
+        for k, v in mirror.items():  # the wrappers size scratch by them
+            setattr(mergejoin, k, values[name].get(k, v))
+        if name == "old":  # the first designs took no tree scratch
+            mergejoin.PROBE_TABLE_LOG2 = mergejoin.RANK_TABLE_LOG2 = 31
+            mergejoin.RANK_SMALL_TABLE_LOG2 = 31
         rec = {"build": name, "values": values[name],
                "ptxas": built[name][1], "card": card}
         print(json.dumps(rec), flush=True)
+        rng = np.random.RandomState(args.seed)
         try:
-            rec["rows"] = chip_smoke.search_detail(
-                torch, np.random.RandomState(args.seed), args.reps, **sizes)
+            rec["rows"] = (
+                chip_smoke.rank_detail(torch, rng, args.reps, RANK_SHAPES)
+                if lib_name == "merge_ranks" else
+                chip_smoke.search_detail(torch, rng, args.reps, **sizes))
         except SystemExit:  # a check failed: recorded, the probe goes on
             rec["failed"] = True
         results.append(rec)
     _build._LIBS.pop(lib_name, None)
-    mergejoin.PROBE_TABLE_LOG2 = table_log2
+    for k, v in mirror.items():
+        setattr(mergejoin, k, v)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"search_probe_{lib_name}.json").write_text(

@@ -101,8 +101,8 @@ def build(sources: dict, out_dir: Path, stem: str = "bitonic_sort") -> dict:
         src = out_dir / f"{stem}-{name}.cu"
         src.write_text(text)
         lib = out_dir / f"lib{stem}-{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-o", str(lib), str(src)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-Xptxas", "-v", "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), lib)
     built = {}
