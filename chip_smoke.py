@@ -24,6 +24,25 @@ Phases, each fatal on failure:
    (``engine_probe_sizes``).  Every kernel launched
    on that path; then one more raw and one more compressed ``infer1``
    run under ``torch.profiler`` for the device busy time;
+   demand phase: ``infer1`` with ``eval_mode="demand"`` on the same
+   facts, never inferred: ``LUBM_QUERIES`` and four point queries, each
+   row set equal to the numpy engine's, no fallback to ``infer()``, the
+   sort and probe kernels launched; serving phase: a ``FactServer`` over
+   ``query1`` (``eval_mode="delta"``, compressed), 2 writer threads
+   appending new students (each append re-infers) and 4 reader threads
+   mixing batchable point queries across tenants with ``LUBM_QUERIES``,
+   then a burst of 20 point reads released together with the writers
+   idle, which must coalesce (more reads than device calls): qps,
+   p50/p99 by mode and query, the batcher's coalescing, every batched
+   read and the first, a middle and the last result of each other query
+   equal to a numpy engine stepped through the write history to the
+   result's token, the probe and merge-rank kernels launched; the same
+   workload again under ``torch.profiler`` for the card's busy share;
+   then ``python -m repro_torch.launch.serve`` (through ``runpy`` in a
+   child that reports its kernel launches) under ``delta`` and
+   ``demand`` (each must exit 0 and print its ``served ... qps`` line).
+   Every run of this phase records its kernels' launches by size and
+   its index-mirror merge shapes (``path_sizes``) for the kernel phase;
 4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4) and then
    ``mamba2-1.3b`` (48 layers, d=2048, SSD) at full width with random
    weights from ``--seed``, each served greedily: B = 2 prompts of
@@ -34,8 +53,8 @@ Phases, each fatal on failure:
    ``flash_attention`` (yi, every launch on the tensor-core ``wgmma``
    route) or ``ssd_intra`` (mamba2) once per layer each;
 5. kernel phase: each kernel at the main path's shapes on the card (the
-   index-mirror merge's ranks at the largest shapes the engine phase
-   gave them, the LM kernels at the prefill shapes of the LM phase),
+   index-mirror merge's ranks at the largest shape the fact path gave
+   them, the LM kernels at the prefill shapes of the LM phase),
    compared with its plain PyTorch version (bit-exact for the integer
    kernels, within a stated tolerance for the float ones; attention on
    both of its routes), timed with
@@ -48,10 +67,12 @@ Phases, each fatal on failure:
    (``torch.profiler``); the probe at m = 2^10 .. 2^21 right keys (n =
    m / 2) and at the engine's shapes beside two ``torch.searchsorted``
    calls, the unique mask at 2^13 .. 2^21 keys beside ``torch.ne``, and
-   the merge ranks at every merge shape the engine phase gave them, each
+   the merge ranks at every merge shape the fact path gave them, each
    launch apart beside one ``torch.searchsorted`` call (``rank_size``
-   rows), each checked bit for bit; ``ssd_intra``'s gram pass timed
-   apart (``gram_ms``);
+   rows), each checked bit for bit; the sorts, the probe and the unique
+   mask bit-checked at both ends of every size bucket the fact path
+   launched them at (``path_shape_checks``); ``ssd_intra``'s gram pass
+   timed apart (``gram_ms``);
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
@@ -391,7 +412,92 @@ def rank_detail(torch, rng, reps: int, shapes) -> list:
     return rows
 
 
-def kernel_phase(torch, seed: int, reps: int, merge_shapes) -> dict:
+def path_shape_checks(torch, rng, sizes: dict) -> dict:
+    """The sorts, the probe and the unique mask at every size the fact
+    path launched them at (``sizes``: the engine, demand, serving and
+    launcher runs), each call bit for bit against its plain version.  A
+    size is counted by bucket, 2^(k-1) < n <= 2^k, so both ends of each
+    bucket are checked; the probe also in the padded form of a batched
+    lookup (a real prefix of each side, ``INT64_MAX`` pads after it), and
+    ``bitonic_sort`` in int64 and int32.  Keys carry ties.  The merge
+    ranks are ``rank_detail``'s: it takes each of their exact shapes."""
+    import numpy as np
+
+    from repro_torch.kernels.mergejoin.mergejoin import (probe_sorted,
+                                                         probe_sorted_plain)
+    from repro_torch.kernels.sortmerge.sortmerge import (
+        bitonic_sort, bitonic_sort_kv, bitonic_sort_kv_plain,
+        bitonic_sort_plain)
+    from repro_torch.kernels.uniquefilter.uniquefilter import (
+        unique_mask_sorted, unique_mask_sorted_plain)
+
+    big = np.iinfo(np.int64).max
+    out = {}
+
+    def ends(k: int) -> list:
+        return sorted({1 << k, (1 << (k - 1)) + 1 if k else 1})
+
+    def dev(a, dtype=torch.int64):
+        return torch.tensor(a, device="cuda").to(dtype)
+
+    def check(name, shape, pairs):
+        err = max_abs_err(torch, pairs)
+        row = out.setdefault(name, {"calls": 0, "max_abs_err": 0,
+                                    "sizes": set(), "differ": []})
+        row["calls"] += 1
+        row["sizes"].add(tuple(d for d in shape if isinstance(d, int)))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if err:
+            row["differ"].append(shape)
+
+    for lg in sizes["sort_sizes"]["bitonic_sort"]:
+        for n in ends(int(lg)):
+            for dt in (torch.int64, torch.int32):
+                x = dev(rng.randint(0, max(2, n // 4), n), dt)
+                check("bitonic_sort", [n, str(dt)],
+                      [(bitonic_sort(x), bitonic_sort_plain(x))])
+    for lg in sizes["sort_sizes"]["bitonic_sort_kv"]:
+        for n in ends(int(lg)):
+            k = dev(rng.randint(0, max(2, n // 4), n))
+            v = torch.arange(n, dtype=torch.int32, device="cuda")
+            (gk, gv), (wk, wv) = (bitonic_sort_kv(k, v),
+                                  bitonic_sort_kv_plain(k, v))
+            check("bitonic_sort_kv", [n], [(gk, wk), (gv, wv)])
+    runs = {}  # sorted right runs by length, from [0, 2m)
+    for key in sizes["search_sizes"]["probe_sorted"]:
+        a, b = map(int, key.split(","))
+        for m in ends(b):
+            if m not in runs:
+                runs[m] = np.sort(rng.randint(0, 2 * m, m)).astype(np.int64)
+            r = dev(runs[m])
+            for n in ends(a):
+                lk = dev(rng.randint(0, 2 * m, n))
+                check("probe_sorted", [n, m],
+                      zip(probe_sorted(lk, r), probe_sorted_plain(lk, r)))
+        n, m = 1 << a, 1 << b  # padded as Ops.batch_probe pads
+        rp, lp = np.full(m, big), np.full(n, big)
+        rp[:m // 2 + 1] = runs[(1 << (b - 1)) + 1 if b else 1][:m // 2 + 1]
+        lp[:n // 2 + 1] = rng.randint(0, 2 * m, n // 2 + 1)
+        rp, lp = dev(rp), dev(lp)
+        check("probe_sorted", [n, m, "padded"],
+              zip(probe_sorted(lp, rp), probe_sorted_plain(lp, rp)))
+    for key in sizes["search_sizes"]["unique_mask_sorted"]:
+        for n in ends(int(key)):
+            x = dev(np.sort(rng.randint(0, max(2, n // 8), n)))
+            check("unique_mask_sorted", [n],
+                  [(unique_mask_sorted(x), unique_mask_sorted_plain(x))])
+    for row in out.values():
+        row["sizes"] = sorted(row["sizes"])
+    print(json.dumps({"path_shape_checks": out}), flush=True)
+    for name, row in out.items():
+        if row["differ"]:
+            fail(f"{name}: kernel and plain version differ at the path's "
+                 f"sizes {row['differ'][:4]}")
+    return out
+
+
+def kernel_phase(torch, seed: int, reps: int, merge_shapes,
+                 sizes: dict) -> dict:
     import numpy as np
 
     from repro_torch import kernels
@@ -528,6 +634,7 @@ def kernel_phase(torch, seed: int, reps: int, merge_shapes) -> dict:
     sort_detail(torch, rng, reps)
     search_detail(torch, rng, reps)
     rank_detail(torch, rng, reps, merge_shapes)
+    path_shape_checks(torch, rng, sizes)
     out.update(lm_kernel_rows(torch, rng, reps))
 
     # the launches above compare and time the kernels; they are not the
@@ -734,9 +841,21 @@ def engine_config(preset: str, overrides: dict):
     return cfg
 
 
-def engine_phase(torch, scale: int, seed: int):
+def new_sizes() -> dict:
+    """Empty launches-by-size tables in the form of ``kernels.counts()``:
+    the sorts' by log2 of the padded length, the probe's by "log2 n,log2
+    m" and the unique mask's by "log2 n"."""
     from repro_torch import kernels
-    from repro_torch.backend import torch_ops
+    return {"sort_sizes": {name: {} for name in kernels.SORT_SIZES},
+            "search_sizes": {name: {} for name in kernels.SEARCH_SIZES}}
+
+
+def engine_phase(torch, scale: int, seed: int, sizes: dict, shapes: list):
+    """The five engine runs against numpy.  Adds the launches by size to
+    ``sizes``; ``shapes`` is the index-mirror merge recorder's list
+    (``merge_shapes``).  Returns the launches over the runs and
+    ``Ops.unique_mask``, and the demand and serving phases' oracle."""
+    from repro_torch import kernels
     from repro_torch.core import EngineConfig, HiperfactEngine
     from repro_torch.core.rulesets import rdfs_plus_rules
     from repro_torch.core.sharded import decoded_fact_checksum
@@ -760,18 +879,19 @@ def engine_phase(torch, scale: int, seed: int):
     ref_stats = ref.infer()
     ref_rows = row_sets(ref, LUBM_QUERIES)
     ref_sum = decoded_fact_checksum(ref)
+    # the demand and serving phases' queries: the four above and the
+    # point queries
+    oracle = {"facts": facts, "facts_inferred": ref_stats.facts_inferred,
+              "rows": ref_rows + row_sets(ref, point_queries())}
     print(json.dumps({"oracle": "numpy", "preset": "query1",
                       "facts_inferred": ref_stats.facts_inferred,
-                      "rows": [len(s) for s in ref_rows],
+                      "rows": [len(s) for s in oracle["rows"]],
                       "checksum": ref_sum,
                       "seconds": time.perf_counter() - t0}), flush=True)
+    del ref
 
     launches = {name: 0 for name in kernels.ENGINE_KERNELS}
-    # the sort kernels' launches by log2 of the padded length, and the
-    # probe's by (log2 n, log2 m) and the unique mask's by log2 n, all runs
-    sizes = {"sort_sizes": {name: {} for name in kernels.SORT_SIZES},
-             "search_sizes": {name: {} for name in kernels.SEARCH_SIZES}}
-    shapes, undo = merge_shapes(torch_ops)
+    engine_sizes = new_sizes()  # this phase's runs alone
     for preset, overrides in RUNS:
         e = HiperfactEngine(engine_config(preset, overrides))
         e.add_rules(rdfs_plus_rules())
@@ -821,7 +941,7 @@ def engine_phase(torch, scale: int, seed: int):
         print(json.dumps(rec), flush=True)
         for name in launches:
             launches[name] += counts["launches"][name]
-        add_sizes(sizes, counts)
+        add_sizes(engine_sizes, counts)
         label = f"{preset} {overrides}"
         if stats.facts_inferred != ref_stats.facts_inferred:
             fail(f"{label}: facts_inferred {stats.facts_inferred} != "
@@ -836,18 +956,18 @@ def engine_phase(torch, scale: int, seed: int):
                  f" not below raw {res['resident_bytes_raw']}")
         # release this engine's device cache before the next run
         e.ops.cache.clear()
-    undo()
     print(json.dumps({"engine_sort_sizes": {
         k: dict(sorted(v.items()))
-        for k, v in sizes["sort_sizes"].items()}}), flush=True)
+        for k, v in engine_sizes["sort_sizes"].items()}}), flush=True)
     counts = unique_mask_entry(torch)
     launches = {k: launches[k] + counts["launches"][k] for k in launches}
-    add_sizes(sizes, counts)
+    add_sizes(engine_sizes, counts)
+    add_sizes(sizes, engine_sizes)
     # the probe's and the unique mask's launches over the five runs and
     # Ops.unique_mask, by size: how the kernel phase's shapes stand
     print(json.dumps({"engine_probe_sizes": {
         k: dict(sorted(v.items()))
-        for k, v in sizes["search_sizes"].items()}}), flush=True)
+        for k, v in engine_sizes["search_sizes"].items()}}), flush=True)
     # a run may skip a kernel for a reason of its data or its mode: an
     # index mirror whose column outgrows its power-of-two buffer is
     # re-sorted, not merged (at scale 500, infer1's only in-infer LPIM
@@ -858,7 +978,7 @@ def engine_phase(torch, scale: int, seed: int):
             fail(f"kernel {name} never launched on the path")
     device_profile(torch, facts, "infer1", {"compress": False})
     device_profile(torch, facts, "infer1", {"compress": True})
-    return launches, sorted(set(shapes))
+    return launches, oracle
 
 
 def add_sizes(sizes: dict, counts: dict) -> None:
@@ -866,6 +986,8 @@ def add_sizes(sizes: dict, counts: dict) -> None:
     for group, per_kernel in sizes.items():
         for name, by_lg in counts[group].items():
             for lg, c in by_lg.items():
+                # the sorts' keys are ints, but strings after JSON
+                lg = int(lg) if group == "sort_sizes" else lg
                 per_kernel[name][lg] = per_kernel[name].get(lg, 0) + c
 
 
@@ -951,6 +1073,476 @@ def device_profile(torch, facts, preset: str, overrides: dict) -> None:
         "own_kernels_s": ours, "sort_kernels_s": sorts, "copies_s": copies,
         "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                                for k, (us, c) in top]}), flush=True)
+
+
+def point_queries():
+    """The demand and serving phases' point queries, beside
+    ``LUBM_QUERIES``: one constant anchor each (batchable when served): a
+    student's types, a department's members (an attribute-anchored
+    probe), everything about a student, a professor's courses."""
+    from repro_torch.core.conditions import cond
+    return [[cond("Data", "stu0_0_0", "type", "?t")],
+            [cond("Data", "?x", "memberOf", "dept0_0")],
+            [cond("Data", "stu0_3_7", "?p", "?o")],
+            [cond("Data", "prof0_1_2", "teacherOf", "?c")]]
+
+
+# the kernels the demand and serving phases must launch between them (the
+# demand rounds' joins, dedups and probes; the served probes and the AI
+# mirrors' merges on every served append)
+SERVING_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
+                   "merge_ranks")
+
+
+def require_launches(phase: str, counts: dict, names) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"{phase}: kernel {name} never launched")
+
+
+def demand_phase(torch, oracle: dict, sizes: dict, shapes: list) -> dict:
+    """``eval_mode="demand"`` under ``infer1`` on the card: the facts
+    loaded and never inferred, then ``LUBM_QUERIES`` and four point
+    queries, each materializing its own cone.  Every row set must equal
+    the numpy full engine's (the engine phase's oracle) with no fallback
+    to a full ``infer()``, and the rounds must launch the sort and the
+    probe.  Adds the load's and the queries' launches by size to
+    ``sizes`` (and the merge recorder adds to ``shapes``).  Returns the
+    kernel launches of the queries."""
+    from repro_torch import kernels
+    from repro_torch.core import HiperfactEngine
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.datasets import LUBM_QUERIES
+
+    e = HiperfactEngine(engine_config("infer1", {"eval_mode": "demand"}))
+    e.add_rules(rdfs_plus_rules())
+    n_shapes = len(shapes)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    e.insert_facts(oracle["facts"])
+    torch.cuda.synchronize()
+    load = kernels.counts()
+    add_sizes(sizes, load)
+    print(json.dumps({"phase": "demand", "preset": "infer1",
+                      "base_facts": len(oracle["facts"]),
+                      "load_s": time.perf_counter() - t0,
+                      "sort_sizes": load["sort_sizes"],
+                      "search_sizes": load["search_sizes"]}), flush=True)
+    names = ("demand_rounds", "demand_cone_rows", "demand_fallbacks",
+             "rows_considered")
+    queries = LUBM_QUERIES + point_queries()
+    kernels.reset_counts()  # the demand path's run starts here
+    t_all = time.perf_counter()
+    for i, (q, want) in enumerate(zip(queries, oracle["rows"])):
+        before = {k: getattr(e.last_infer, k) for k in names}
+        t0 = time.perf_counter()
+        got = row_sets(e, [q])[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"demand_query": i,
+               "conditions": [f"{c.id} {c.attr} {c.val}" for c in q],
+               "seconds": secs,
+               **{k: getattr(e.last_infer, k) - before[k] for k in names},
+               "rows": len(got), "rows_equal": got == want,
+               "facts_inferred_full": oracle["facts_inferred"]}
+        print(json.dumps(rec), flush=True)
+        if got != want:
+            fail(f"demand query {i}: row set differs from numpy full")
+    counts = kernels.counts()  # ... and ends here
+    add_sizes(sizes, counts)
+    st = e.last_infer
+    print(json.dumps({"phase": "demand", "queries_s":
+                      time.perf_counter() - t_all,
+                      "demand_rounds": st.demand_rounds,
+                      "demand_cone_rows": st.demand_cone_rows,
+                      "demand_fallbacks": st.demand_fallbacks,
+                      "facts_inferred_full": oracle["facts_inferred"],
+                      "launches": counts["launches"],
+                      "sort_sizes": counts["sort_sizes"],
+                      "search_sizes": counts["search_sizes"],
+                      "merge_shapes": sorted(set(shapes[n_shapes:])),
+                      "width_fallbacks": counts["fallbacks"]}), flush=True)
+    if st.demand_fallbacks:
+        fail(f"demand phase: {st.demand_fallbacks} fallbacks to infer()")
+    require_launches("demand phase", counts["launches"],
+                     ("bitonic_sort", "probe_sorted"))
+    e.ops.cache.clear()
+    return counts["launches"]
+
+
+# the serving phase: writers x appends each, readers x reads each, and the
+# batcher's tenants
+SERVE_WRITERS, SERVE_APPENDS, SERVE_READERS, SERVE_READS = 2, 8, 4, 24
+SERVE_TENANTS = 3
+
+
+def new_student(rng, w: int, i: int) -> list:
+    """One served append: a new student with a type, a department and a
+    course, shaped like ``lubm_like``'s."""
+    from repro_torch.core import Fact
+    d, p, c = rng.randint(8), rng.randint(6), rng.randint(2)
+    stu = f"stu_w{w}_{i}"
+    return [Fact("Data", stu, "type",
+                 "GraduateStudent" if i % 4 == 0 else "Student"),
+            Fact("Data", stu, "memberOf", f"dept0_{d}"),
+            Fact("Data", stu, "takesCourse", f"course0_{d}_{p}_{c}")]
+
+
+def serve_threads(srv, queries, seed: int, first: int) -> dict:
+    """The serving phase's threaded workload on ``srv``: writer threads
+    append new students (``first`` numbers the first append of each),
+    reader threads mix ``LUBM_QUERIES`` (even reads) with the point
+    queries (odd reads) across tenants.  Returns each read's (seconds,
+    mode, query index, result), each append's seconds, errors and the
+    wall time."""
+    import threading
+
+    import numpy as np
+
+    n_lubm = len(queries) - len(point_queries())
+    out = {"reads": [], "appends": [], "errors": []}
+    lock = threading.Lock()
+
+    def writer(w):
+        rng = np.random.RandomState(seed + 100 * (first + 1) + w)
+        try:
+            for i in range(first, first + SERVE_APPENDS):
+                t = time.perf_counter()
+                srv.append(new_student(rng, w, i))
+                dt = time.perf_counter() - t
+                with lock:
+                    out["appends"].append(dt)
+        except Exception as exc:  # noqa: BLE001 - fails the phase
+            out["errors"].append(repr(exc))
+
+    def reader(r):
+        try:
+            for i in range(SERVE_READS):
+                qi = ((i // 2 + r) % n_lubm if i % 2 == 0 else
+                      n_lubm + (i // 2 + r) % (len(queries) - n_lubm))
+                t = time.perf_counter()
+                res = srv.serve(queries[qi],
+                                tenant=f"t{(r + i) % SERVE_TENANTS}")
+                dt = time.perf_counter() - t
+                with lock:
+                    out["reads"].append((dt, res.mode, qi, res))
+        except Exception as exc:  # noqa: BLE001
+            out["errors"].append(repr(exc))
+
+    threads = ([threading.Thread(target=writer, args=(w,))
+                for w in range(SERVE_WRITERS)]
+               + [threading.Thread(target=reader, args=(r,))
+                  for r in range(SERVE_READERS)])
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    out["wall_s"] = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("serving phase: a thread did not finish in 600 s")
+    if out["errors"]:
+        fail(f"serving phase: {len(out['errors'])} reads or writes raised: "
+             f"{out['errors'][:3]}")
+    if len(out["reads"]) != SERVE_READERS * SERVE_READS:
+        fail(f"serving phase: {len(out['reads'])} reads served")
+    return out
+
+
+def pct_ms(xs, q: float) -> float:
+    ms = sorted(x * 1e3 for x in xs)
+    return ms[min(len(ms) - 1, int(len(ms) * q))]
+
+
+def burst_queries() -> list:
+    """The serving phase's burst: point reads of 16 base students and of
+    the first and last student each writer appended, all anchored on the
+    subject (one ``(Data, ID)`` bucket, so one wave of the batcher)."""
+    from repro_torch.core.conditions import cond
+    stus = [f"stu0_{d}_{s}" for d in range(8) for s in (5, 17)]
+    stus += [f"stu_w{w}_{i}" for w in range(SERVE_WRITERS)
+             for i in (0, SERVE_APPENDS - 1)]
+    return [[cond("Data", stu, "?p", "?o")] for stu in stus]
+
+
+def serve_burst(srv, queries) -> list:
+    """One read of each query, all released together by a barrier with
+    the writers idle, so the batcher's admission window takes several
+    anchors in one wave.  Returns the results in query order."""
+    import threading
+
+    barrier = threading.Barrier(len(queries))
+    out, errors = [None] * len(queries), []
+
+    def read(i):
+        try:
+            barrier.wait(timeout=60)
+            out[i] = srv.serve(queries[i], tenant=f"t{i % SERVE_TENANTS}")
+        except Exception as exc:  # noqa: BLE001 - fails the phase
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=read, args=(i,))
+               for i in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        fail("serving phase: a burst read did not finish in 120 s")
+    if errors:
+        fail(f"serving phase: {len(errors)} burst reads raised: "
+             f"{errors[:3]}")
+    return out
+
+
+def serving_phase(torch, facts, seed: int, sizes: dict,
+                  shapes: list) -> dict:
+    """``FactServer`` over a ``query1`` engine (``eval_mode="delta"``,
+    the default compressed tier) on the card: ``serve_threads``'s writers
+    and readers, then a burst of point reads with the writers idle
+    (``serve_burst``), which must coalesce.  Every batched read, and the
+    first, a middle and the last result of each other query, is held
+    against a numpy engine of the same preset and mode stepped through
+    the server's write history to the result's token.  Then the threaded
+    workload once more under ``torch.profiler`` for the card's busy
+    time.  Adds every run's launches by size to ``sizes`` (the merge
+    recorder adds to ``shapes``).  Returns the kernel launches of the
+    threaded run and the burst."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import HiperfactEngine
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.datasets import LUBM_QUERIES
+    from repro_torch.serve import FactServer, ServedResult
+
+    def engine(cfg):
+        e = HiperfactEngine(cfg)
+        e.add_rules(rdfs_plus_rules())
+        e.insert_facts(facts)
+        e.infer()
+        return e
+
+    n_shapes = len(shapes)
+    kernels.reset_counts()  # the server's engine: load and first infer
+    t0 = time.perf_counter()
+    e = engine(engine_config("query1", {"eval_mode": "delta"}))
+    torch.cuda.synchronize()
+    setup = kernels.counts()
+    add_sizes(sizes, setup)
+    print(json.dumps({"phase": "serving", "preset": "query1",
+                      "eval_mode": "delta", "compress": e.ops.compress,
+                      "setup_s": time.perf_counter() - t0,
+                      "sort_sizes": setup["sort_sizes"],
+                      "search_sizes": setup["search_sizes"],
+                      "merge_shapes": sorted(set(shapes[n_shapes:]))}),
+          flush=True)
+    queries = LUBM_QUERIES + point_queries()
+    burst = burst_queries()
+    srv = FactServer(e, record_history=True)
+    n_shapes = len(shapes)
+    kernels.reset_counts()  # the serving path's run starts here
+    run = serve_threads(srv, queries, seed, 0)
+    b0 = srv.stats()["batch"]
+    t0 = time.perf_counter()
+    burst_res = serve_burst(srv, burst)
+    burst_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = kernels.counts()  # ... and ends here
+    add_sizes(sizes, counts)
+    st = srv.stats()
+    b1 = st["batch"]
+    reads, wall = run["reads"], run["wall_s"]
+    by = {}
+    for dt, mode, qi, _ in reads:
+        by.setdefault(("mode", mode), []).append(dt)
+        by.setdefault(("query", qi), []).append(dt)
+    burst_rec = {k: b1[k] - b0[k] for k in ("device_calls",
+                                            "batched_queries", "flushes")}
+    burst_rec.update(reads=len(burst), seconds=burst_s,
+                     modes=sorted({r.mode for r in burst_res}))
+    rec = {"serving": "query1", "writers": SERVE_WRITERS,
+           "appends": len(run["appends"]), "readers": SERVE_READERS,
+           "reads": len(reads), "wall_s": wall,
+           "served_qps": len(reads) / wall,
+           "p50_ms": pct_ms([r[0] for r in reads], 0.5),
+           "p99_ms": pct_ms([r[0] for r in reads], 0.99),
+           "p50_ms_by_mode": {k[1]: pct_ms(v, 0.5) for k, v in by.items()
+                              if k[0] == "mode"},
+           "p50_ms_by_query": {k[1]: pct_ms(v, 0.5) for k, v in by.items()
+                               if k[0] == "query"},
+           "append_p50_ms": pct_ms(run["appends"], 0.5),
+           "append_max_ms": pct_ms(run["appends"], 1.0),
+           # summed over the writers, lock waits included
+           "append_s_sum": sum(run["appends"]),
+           # the threaded run's batcher numbers are b0's; the burst's
+           # are the difference
+           "served": st["served"], "epoch_retries": st["epoch_retries"],
+           "requery": st["requery"], "batch": b0, "burst": burst_rec,
+           "launches": counts["launches"],
+           "sort_sizes": counts["sort_sizes"],
+           "search_sizes": counts["search_sizes"],
+           "merge_shapes": sorted(set(shapes[n_shapes:])),
+           "width_fallbacks": counts["fallbacks"], "card": card_line()}
+    print(json.dumps(rec), flush=True)
+    if b0["batched_queries"] <= 0:
+        fail("serving phase: no read took the batched probe")
+    if burst_rec["modes"] != ["batched"]:
+        fail(f"serving phase: burst reads served as {burst_rec['modes']}")
+    if burst_rec["batched_queries"] <= burst_rec["device_calls"]:
+        fail(f"serving phase: the burst's {burst_rec['batched_queries']} "
+             f"reads took {burst_rec['device_calls']} device calls: no "
+             "wave carried several anchors")
+    require_launches("serving phase", counts["launches"],
+                     ("probe_sorted", "merge_ranks"))
+
+    # the oracle: every batched read, and the first, a middle and the last
+    # result of each other query, each beside a numpy engine stepped
+    # through the write history to the last entry bearing the result's
+    # token; queries index queries + burst
+    served = {}
+    for _, _, qi, res in reads:
+        served.setdefault(qi, []).append(res)
+    served.update({len(queries) + k: [res]
+                   for k, res in enumerate(burst_res)})
+    picks = {}
+    n_batched = 0
+    for qi in range(len(queries) + len(burst)):
+        results = served.get(qi)
+        if not results:
+            fail(f"serving phase: query {qi} was never served")
+        ends = {0, len(results) // 2, len(results) - 1}
+        for j, res in enumerate(results):
+            if res.mode == "batched" or j in ends:
+                n_batched += res.mode == "batched"
+                picks.setdefault(res.token, set()).add(
+                    (qi, res.checksum(), len(res.rows)))
+    all_queries = queries + burst
+    del served, reads, run, burst_res
+    history = srv.history
+    last = {tok: i for i, (_, _, tok) in enumerate(history)}
+    if set(picks) - set(last):
+        fail("serving phase: a served token names no write prefix")
+    t0 = time.perf_counter()
+    oracle = engine(engine_config("query1", {"eval_mode": "delta",
+                                             "backend": "numpy"}))
+    checked = 0
+    for i, (kind, fs, tok) in enumerate(history):
+        if kind not in ("init", "append", "delete", "materialize") or (
+                fs and kind not in ("append", "delete")):
+            fail(f"serving phase: history entry {i} is a {kind} the "
+                 "oracle cannot replay")
+        if fs:
+            if kind == "append":
+                oracle.insert_facts(fs)
+            else:
+                oracle.delete_facts(fs)
+            oracle.infer()
+        if last[tok] != i or tok not in picks:
+            continue
+        for qi, checksum, n in sorted(picks[tok]):
+            want = ServedResult(oracle.query(all_queries[qi]), tok,
+                                "oracle")
+            if (want.checksum(), len(want.rows)) != (checksum, n):
+                fail(f"serving phase: query {qi} at history entry {i} "
+                     f"served {n} rows, numpy has {len(want.rows)}")
+            checked += 1
+    print(json.dumps({"serving_oracle": "numpy", "history": len(history),
+                      "tokens_checked": len(picks),
+                      "results_checked": checked,
+                      "batched_reads_checked": n_batched,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    del oracle
+
+    # the card's busy time over the same workload (more appends, fresh
+    # student names), under the profiler: its overhead lengthens wall_s
+    n_shapes = len(shapes)
+    kernels.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prun = serve_threads(srv, queries, seed, SERVE_APPENDS)
+        torch.cuda.synchronize()
+    srv.close()
+    prof_counts = kernels.counts()
+    add_sizes(sizes, prof_counts)
+    per = device_events(prof)
+    busy = sum(us for us, _ in per.values()) / 1e6
+    ours = sum(us for k, (us, _) in per.items()
+               if any(n in k for n in OUR_KERNELS)) / 1e6
+    copies = sum(us for k, (us, _) in per.items()
+                 if "memcpy" in k.lower()) / 1e6
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    print(json.dumps({
+        "serving_profile": "query1", "reads": len(prun["reads"]),
+        "appends": len(prun["appends"]), "wall_s": prun["wall_s"],
+        "device_busy_s": busy if busy else "not measured",
+        "idle_share": 1 - busy / prun["wall_s"] if busy else "not measured",
+        "own_kernels_s": ours, "copies_s": copies,
+        "sort_sizes": prof_counts["sort_sizes"],
+        "search_sizes": prof_counts["search_sizes"],
+        "merge_shapes": sorted(set(shapes[n_shapes:])),
+        "top_device_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                               for k, (us, c) in top]}), flush=True)
+    e.ops.cache.clear()
+    return counts["launches"]
+
+
+# runs the launcher module as ``python -m`` does (``runpy``), then prints
+# the kernel launches by size and the index-mirror merge shapes of that
+# process on a line of its own
+LAUNCHER_CHILD = """\
+import atexit, json, runpy, sys
+sys.path[:0] = [{root!r}, {src!r}]
+import chip_smoke
+from repro_torch import kernels
+from repro_torch.backend import torch_ops
+shapes, _ = chip_smoke.merge_shapes(torch_ops)
+atexit.register(lambda: print("launcher_kernels " + json.dumps(
+    {{**kernels.counts(), "merge_shapes": sorted(set(shapes))}}),
+    flush=True))
+sys.argv[0] = "repro_torch.launch.serve"
+runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def launcher_phase(sizes: dict, shapes: list,
+                   backend: str = "torch") -> None:
+    """``python -m repro_torch.launch.serve`` on the card, once under
+    ``eval_mode="delta"`` and once under ``"demand"``: each must exit 0
+    and print its ``served ... qps`` line.  The module runs through
+    ``runpy`` in a child that reports its kernel launches by size and its
+    merge shapes, which are added to ``sizes`` and ``shapes``."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    child = LAUNCHER_CHILD.format(root=str(ROOT), src=str(ROOT / "src"))
+    for mode in ("delta", "demand"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", child,
+             "--backend", backend, "--eval-mode", mode, "--chains", "8",
+             "--hops", "8", "--writers", "2", "--readers", "4",
+             "--write-ops", "6", "--reads", "12"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        lines = res.stdout.strip().splitlines()
+        served = [ln for ln in lines if re.match(
+            r"served \d+ reads in [\d.]+s \([\d.]+ qps\)", ln)]
+        counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                  if ln.startswith("launcher_kernels ")]
+        print(json.dumps({"launcher": "repro_torch.launch.serve",
+                          "eval_mode": mode, "rc": res.returncode,
+                          "seconds": time.perf_counter() - t0,
+                          "stdout": [ln for ln in lines if not
+                                     ln.startswith("launcher_kernels ")],
+                          "kernels": counts[0] if counts else None}),
+              flush=True)
+        if res.returncode != 0 or not served or not counts:
+            fail(f"launcher ({mode}): rc {res.returncode}, "
+                 f"stderr {res.stderr[-400:]!r}")
+        add_sizes(sizes, counts[0])
+        shapes.extend(tuple(s) for s in counts[0]["merge_shapes"])
 
 
 # (config, the launch counts its forward raises once per layer) of the LM
@@ -1187,10 +1779,34 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "per_library_s": secs}), flush=True)
 
-    launches, merge_shapes = engine_phase(torch, args.scale, args.seed)
+    # every run of the fact path adds its kernels' launches by size and
+    # its index-mirror merge shapes here; the kernel phase checks each
+    from repro_torch.backend import torch_ops
+    sizes = new_sizes()
+    shapes, undo = merge_shapes(torch_ops)
+    launches, oracle = engine_phase(torch, args.scale, args.seed, sizes,
+                                    shapes)
+    seen = {k: 0 for k in launches}
+    for counts in (demand_phase(torch, oracle, sizes, shapes),
+                   serving_phase(torch, oracle["facts"], args.seed, sizes,
+                                 shapes)):
+        seen = {k: seen[k] + counts[k] for k in seen}
+    for name in SERVING_KERNELS:
+        if seen[name] <= 0:
+            fail(f"kernel {name} never launched in the demand and serving "
+                 "phases")
+    launches = {k: launches[k] + seen[k] for k in launches}
+    del oracle
+    launcher_phase(sizes, shapes)
+    undo()
+    print(json.dumps({"path_sizes": {
+        group: {k: dict(sorted(v.items())) for k, v in per.items()}
+        for group, per in sizes.items()},
+        "path_merge_shapes": sorted(set(shapes))}), flush=True)
     launches.update(lm_phase(torch, args.seed, LM_BATCH, LM_SEQ,
                              LM_STEPS))
-    rows = kernel_phase(torch, args.seed, args.reps, merge_shapes)
+    rows = kernel_phase(torch, args.seed, args.reps, sorted(set(shapes)),
+                        sizes)
 
     line = []
     for k in KERNELS:

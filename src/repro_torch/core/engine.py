@@ -60,8 +60,9 @@ class EngineConfig:
       follows ``Ops.prefer_handles``: on for the torch backends).
     * ``eval_mode`` — fixpoint rounds re-evaluate rules in ``full``, or
       semi-naive over append frontiers (``delta``); ``auto`` picks per
-      rule per round and reverts to full where semi-naive cannot win.
-      ``demand`` is not ported yet (ROADMAP A7) and raises.
+      rule per round and reverts to full where semi-naive cannot win;
+      ``demand`` skips eager ``infer()`` and materializes only each
+      query's cone at query time (``core.demand``).
     * ``query_cache`` / ``lazy`` — the paper §5 rank-N result cache and
       Defs. 10/11 active-rule pruning.
     * ``shards`` — the hash-partitioned engine is not ported yet
@@ -85,8 +86,9 @@ class EngineConfig:
     sort_mode: str = "sortkeys"   # sortkeys | fixed | sketch
     backend: str = "torch"        # torch (CUDA) | torch-cpu | numpy
     device_pipeline: str = "auto"  # auto | on | off — handle-tier join core
-    eval_mode: str = "auto"       # full | delta | auto — semi-naive rounds
-    #                               ("demand" raises: ROADMAP A7)
+    eval_mode: str = "auto"       # full | delta | auto | demand — semi-naive
+    #                               rounds; "demand" additionally restricts
+    #                               query-time inference to the query's cone
     query_cache: bool = False     # rank-2/3 result cache (paper §5 fut. work)
     lazy: bool = False            # Defs. 10/11 active-rule pruning
     max_iterations: int = 1000
@@ -264,10 +266,7 @@ def _resolve_shards(config: EngineConfig) -> int:
 class HiperfactEngine:
     def __init__(self, config: EngineConfig | None = None) -> None:
         self.config = config or EngineConfig()
-        if self.config.eval_mode == "demand":
-            raise NotImplementedError(
-                "eval_mode='demand' is not ported yet (ROADMAP A7)")
-        if self.config.eval_mode not in ("full", "delta", "auto"):
+        if self.config.eval_mode not in ("full", "delta", "auto", "demand"):
             raise ValueError(
                 f"unknown eval_mode: {self.config.eval_mode!r}")
         if _resolve_shards(self.config) > 1:
@@ -292,7 +291,7 @@ class HiperfactEngine:
         # support (outputs of rules that took a non-counting full
         # fallback — deletes reaching them go through the DRed scrub),
         # and how far the scrub detector has read each delete log.
-        self._counting = self.config.eval_mode in ("delta", "auto")
+        self._counting = self.config.eval_mode in ("delta", "auto", "demand")
         self._count_tainted: set[str] = set()
         self._dellog_seen: dict[str, int] = {}
         self._n_compensated = 0
@@ -322,6 +321,11 @@ class HiperfactEngine:
         self._requery_nodes = None
         self._planner = None  # lazy SketchPlanner (sort_mode="sketch")
         self._sketch_seen = (0, 0)  # planner counters already drained
+        # demand-mode memo: conditions-tuple -> version token over the
+        # cone's input types at last materialization (a repeat query at
+        # unchanged versions skips propagation entirely)
+        self._demand_done: dict[tuple, tuple] = {}
+        self._demand_skip = False  # A9 shard workers: parent owns the cone
 
     # ------------------------------------------------------------------ API
     def _intern_rule_constants(self, rule: Rule) -> None:
@@ -682,7 +686,7 @@ class HiperfactEngine:
         if cap == "no":
             self._taint_rule_outputs(ridx)
             return None
-        if (self.config.eval_mode == "auto"
+        if (self.config.eval_mode in ("auto", "demand")
                 and self.config.rnl != "AR"):
             # without the AR restriction a delta pass still joins the
             # full relations of the other conditions — k passes cost
@@ -709,7 +713,7 @@ class HiperfactEngine:
         if passes is None:
             self._taint_rule_outputs(ridx)
             return None
-        if self.config.eval_mode == "auto" and passes:
+        if self.config.eval_mode in ("auto", "demand") and passes:
             # semi-naive pays when the frontier is small relative to the
             # relations: a dense recursive closure (wordnet-style) grows
             # by ~half the table per round, and k delta-joins against
@@ -1174,6 +1178,45 @@ class HiperfactEngine:
         stats.sketch_misses += p.misses - m0
         self._sketch_seen = (p.hits, p.misses)
 
+    # ------------------------------------------------- demand evaluation
+    def _demand_materialize(self, conditions: list[Condition]) -> None:
+        """``eval_mode="demand"``: make the store complete *for this
+        query* — interleave demand propagation and restricted evaluation
+        to the joint fixpoint (or run a full ``infer()`` when the cone
+        cannot be restricted soundly).  A repeat query whose cone input
+        versions are unchanged skips propagation via ``_demand_done``."""
+        from repro_torch.core.demand import DemandEvaluator
+        ev = DemandEvaluator(self, conditions)
+        if not ev.cone_rules:
+            return
+        # deletes between queries: derived rows materialized by earlier
+        # cones may have lost support — run the death-frontier check
+        # (and scrub, if triggered) that infer() would have run, so a
+        # demand query never serves retracted derivations
+        self._check_death_frontiers(self.last_infer)
+        memo_key = self._result_cache.key(conditions, ()) \
+            if self._result_cache is not None else None
+        if memo_key is not None:
+            token = self._query_version_token(ev.cone_types)
+            if self._demand_done.get(memo_key) == token:
+                return
+        stats = self.last_infer
+        if ev.fallback is not None:
+            self.infer()
+            self.last_infer.demand_fallbacks += 1
+        else:
+            rounds = 1
+            while ev.round() and rounds < self.config.max_iterations:
+                rounds += 1
+            stats.demand_rounds += rounds
+            stats.demand_cone_rows += ev.facts_written
+            stats.rows_considered += ev.rows_considered
+            self._drain_sketch_counts(stats)
+        if memo_key is not None:
+            # token recomputed: materialization bumped the versions
+            self._demand_done[memo_key] = self._query_version_token(
+                ev.cone_types)
+
     # --------------------------------------------------------------- query
     def _query_version_token(self, types) -> tuple:
         """Hashable snapshot of the query's input-table versions — the
@@ -1196,6 +1239,10 @@ class HiperfactEngine:
         """
         rule = Rule("<adhoc>", tuple(conditions))
         cfg = self.config
+        if cfg.eval_mode == "demand" and self.rules and not self._demand_skip:
+            # undischarged rules: materialize only this query's cone
+            # (or fall back to a full infer()) before evaluation
+            self._demand_materialize(list(conditions))
         key = None
         if decode and self._result_cache is not None:
             key = self._result_cache.key(

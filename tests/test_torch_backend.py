@@ -280,7 +280,7 @@ def test_dedup_rows(ops, wide):
 def test_unported_primitives_raise(ops):
     """Every primitive of ``Ops`` is ported now: ``unique_mask``,
     ``sketch`` and the compressed tier run and match the oracle (only
-    the engine's demand and sharded modes still raise)."""
+    the engine's sharded mode still raises)."""
     x = np.array([3, 3, 5, 9, 9, 9], np.int64)
     np.testing.assert_array_equal(ops.unique_mask(x), HOST.unique_mask(x))
     sk, want = ops.sketch(x), HOST.sketch(x)

@@ -390,6 +390,114 @@ def test_cuda_ops_unique_mask_and_sketch(cuda):
     np.testing.assert_array_equal(got["dhist"], want["dhist"])
 
 
+LUBM_POINT = [[("Data", "stu0_0_0", "type", "?t")],
+              [("Data", "?x", "memberOf", "dept0_0")]]
+
+
+@pytest.mark.cuda
+def test_cuda_demand_equals_numpy(cuda):
+    """``eval_mode="demand"`` on the card over ``lubm_like(20)``: the
+    ``LUBM_QUERIES`` and two point queries give the port's ``numpy``
+    backend's row sets and demand counters, with no fallback, through
+    the sort and probe kernels."""
+    from repro_torch.core import EngineConfig, HiperfactEngine
+    from repro_torch.core.conditions import cond
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.datasets import LUBM_QUERIES, lubm_like
+    facts = lubm_like(20)
+    queries = LUBM_QUERIES + [[cond(*c) for c in q] for q in LUBM_POINT]
+    out = []
+    for backend in ("torch", "numpy"):
+        cfg = EngineConfig.infer1(backend=backend)
+        cfg.eval_mode = "demand"
+        e = HiperfactEngine(cfg)
+        e.add_rules(rdfs_plus_rules())
+        e.insert_facts(facts)
+        kernels.reset_counts()
+        rows = [{tuple(sorted(r.items())) for r in e.query(q)}
+                for q in queries]
+        st = e.last_infer
+        if backend == "torch":
+            assert kernels.LAUNCHES["bitonic_sort"] > 0
+            assert kernels.LAUNCHES["probe_sorted"] > 0
+        assert st.demand_fallbacks == 0 and st.demand_cone_rows > 0
+        out.append((rows, st.demand_rounds, st.demand_cone_rows))
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_fact_server_threads_equal_numpy(cuda):
+    """``FactServer`` over a ``query1`` delta engine on the card: two
+    writers append while two readers send batched point queries; every
+    read equals a ``numpy`` engine stepped through the write history to
+    the read's token, and the batched reads launch ``probe_sorted``."""
+    import threading
+
+    from repro_torch.core import EngineConfig, Fact, HiperfactEngine
+    from repro_torch.core.conditions import cond
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.serve import FactServer
+
+    def engine(backend):
+        cfg = EngineConfig.query1(backend=backend)
+        cfg.eval_mode = "delta"
+        e = HiperfactEngine(cfg)
+        e.add_rules(rdfs_plus_rules())
+        e.insert_facts([Fact(*f) for f in KG])
+        e.infer()
+        return e
+
+    qs = [[cond("Data", "?a", "partOf", "?b")],
+          [cond("Data", "x", "type", "?t")],
+          [cond("Data", "p1", "?r", "?o")]]
+    srv = FactServer(engine("torch"), record_history=True)
+    served, errors = [], []
+
+    def writer(w):
+        try:
+            for i in range(6):
+                srv.append([Fact("Data", f"p{w}_{i}", "partOf", "p1"),
+                            Fact("Data", f"w{w}_{i}", "type", "A")])
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    def reader(r):
+        try:
+            for i in range(12):
+                q = qs[(r + i) % len(qs)]
+                served.append((q, srv.serve(q, tenant=f"t{i % 2}")))
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    kernels.reset_counts()
+    threads = ([threading.Thread(target=writer, args=(w,)) for w in range(2)]
+               + [threading.Thread(target=reader, args=(r,))
+                  for r in range(2)])
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    srv.close()
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert kernels.LAUNCHES["probe_sorted"] > 0
+    assert srv.stats()["served"]["batched"] == len(served) == 24
+    last = {tok: i for i, (_, _, tok) in enumerate(srv.history)}
+    oracle, checked = engine("numpy"), 0
+    for i, (_, facts, tok) in enumerate(srv.history):
+        if facts:
+            oracle.insert_facts(facts)
+            oracle.infer()
+        if last[tok] != i:
+            continue
+        for q, res in served:
+            if res.token == tok:
+                assert ({tuple(sorted(r.items())) for r in res.rows}
+                        == {tuple(sorted(r.items()))
+                            for r in oracle.query(q)})
+                checked += 1
+    assert checked == len(served)
+
+
 # -- the LM kernels ------------------------------------------------------------
 
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}

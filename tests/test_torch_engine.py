@@ -166,11 +166,14 @@ def test_load_reference_state_rejects_mismatched_ids():
 
 
 def test_unported_modes_raise():
-    """Only demand evaluation (A7) and the sharded engine (A9) still
-    raise; compressed columns are on by default and take either flag."""
-    with pytest.raises(NotImplementedError, match="A7"):
+    """Only the sharded engine (A9) still raises; demand evaluation is
+    ported (``tests/test_torch_demand.py``), and compressed columns are
+    on by default and take either flag."""
+    assert HiperfactEngine(EngineConfig(
+        backend="torch-cpu", eval_mode="demand"))._counting
+    with pytest.raises(NotImplementedError, match="A9"):
         HiperfactEngine(EngineConfig(backend="torch-cpu",
-                                     eval_mode="demand"))
+                                     eval_mode="demand", shards=2))
     with pytest.raises(NotImplementedError, match="A9"):
         HiperfactEngine(EngineConfig(backend="torch-cpu", shards=2))
     for flag in (True, False):

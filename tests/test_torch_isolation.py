@@ -3,8 +3,8 @@
 * importing every ``repro_torch`` module (in a fresh interpreter) loads
   no ``jax*`` module and nothing of ``repro``;
 * no port source and not ``chip_smoke.py`` even names such an import;
-* the ``torch`` backend raises when torch sees no CUDA device instead of
-  moving to the CPU;
+* the ``torch`` backend, and the serving launcher that defaults to it,
+  raise when torch sees no CUDA device instead of moving to the CPU;
 * ``chip_smoke.py`` exits non-zero, printing no ``"ok": true`` line, on
   a machine without a card and in a directory holding nothing else of
   the repository.
@@ -48,6 +48,33 @@ def test_every_module_imports_without_jax_or_repro():
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", res.stdout
+
+
+def test_walk_reaches_demand_serving_and_launcher():
+    """The import check above walks the modules of the demand and
+    serving slice too."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.demand", "repro_torch.serve",
+            "repro_torch.serve.engine", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= names
+
+
+def test_serve_launcher_refuses_to_run_without_cuda(monkeypatch):
+    """``python -m repro_torch.launch.serve`` defaults to the card and
+    raises without one; it never moves to the CPU."""
+    import torch
+
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--backend", "torch"]):
+        monkeypatch.setattr(sys, "argv", ["serve", *argv, "--write-ops",
+                                          "1", "--reads", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main()
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
