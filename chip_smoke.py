@@ -41,6 +41,20 @@ Phases, each fatal on failure:
    then ``python -m repro_torch.launch.serve`` (through ``runpy`` in a
    child that reports its kernel launches) under ``delta`` and
    ``demand`` (each must exit 0 and print its ``served ... qps`` line).
+   Then the sharded phase (``shards=4``, each run's launches counted
+   from its load to its last query): ``infer1`` full over the facts
+   above with the frontier exchange's device transport over
+   ``[cuda:0] * 4`` (every flush on the device; checksum,
+   ``facts_inferred`` and row sets equal to numpy); ``query1``
+   compressed with the sketch planner, ``eval_mode="delta"``, on the
+   default transport (the host permute on one card, every flush saying
+   so), one appended batch of new students and a second ``infer()``,
+   against a numpy unsharded engine stepped the same way; ``infer1``
+   demand with the four LUBM and four point queries, no fallback; each
+   line with rounds, rows and bytes exchanged, the exchange's time, the
+   critical path and load/infer/query seconds; the launcher at
+   ``--shards 4``; ``DistributedClosure`` over ``[cuda:0] * 4`` on 64
+   disjoint chains of 64 nodes against the closed form (129,024 pairs).
    Every run of this phase records its kernels' launches by size and
    its index-mirror merge shapes (``path_sizes``) for the kernel phase;
 4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4) and then
@@ -882,7 +896,8 @@ def engine_phase(torch, scale: int, seed: int, sizes: dict, shapes: list):
     # the demand and serving phases' queries: the four above and the
     # point queries
     oracle = {"facts": facts, "facts_inferred": ref_stats.facts_inferred,
-              "rows": ref_rows + row_sets(ref, point_queries())}
+              "rows": ref_rows + row_sets(ref, point_queries()),
+              "checksum": ref_sum}
     print(json.dumps({"oracle": "numpy", "preset": "query1",
                       "facts_inferred": ref_stats.facts_inferred,
                       "rows": [len(s) for s in oracle["rows"]],
@@ -1506,25 +1521,26 @@ runpy.run_module("repro_torch.launch.serve", run_name="__main__",
 """
 
 
-def launcher_phase(sizes: dict, shapes: list,
-                   backend: str = "torch") -> None:
-    """``python -m repro_torch.launch.serve`` on the card, once under
-    ``eval_mode="delta"`` and once under ``"demand"``: each must exit 0
-    and print its ``served ... qps`` line.  The module runs through
-    ``runpy`` in a child that reports its kernel launches by size and its
-    merge shapes, which are added to ``sizes`` and ``shapes``."""
+def launcher_phase(sizes: dict, shapes: list, backend: str = "torch",
+                   runs=(("delta", 1), ("demand", 1))) -> None:
+    """``python -m repro_torch.launch.serve`` on the card, once per
+    ``(eval_mode, shards)`` of ``runs`` (by default ``delta`` and
+    ``demand`` on one shard): each must exit 0 and print its ``served
+    ... qps`` line.  The module runs through ``runpy`` in a child that
+    reports its kernel launches by size and its merge shapes, which are
+    added to ``sizes`` and ``shapes``."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     child = LAUNCHER_CHILD.format(root=str(ROOT), src=str(ROOT / "src"))
-    for mode in ("delta", "demand"):
+    for mode, shards in runs:
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-c", child,
              "--backend", backend, "--eval-mode", mode, "--chains", "8",
              "--hops", "8", "--writers", "2", "--readers", "4",
-             "--write-ops", "6", "--reads", "12"],
+             "--write-ops", "6", "--reads", "12", "--shards", str(shards)],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
         lines = res.stdout.strip().splitlines()
         served = [ln for ln in lines if re.match(
@@ -1532,17 +1548,277 @@ def launcher_phase(sizes: dict, shapes: list,
         counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines
                   if ln.startswith("launcher_kernels ")]
         print(json.dumps({"launcher": "repro_torch.launch.serve",
-                          "eval_mode": mode, "rc": res.returncode,
+                          "eval_mode": mode, "shards": shards,
+                          "rc": res.returncode,
                           "seconds": time.perf_counter() - t0,
                           "stdout": [ln for ln in lines if not
                                      ln.startswith("launcher_kernels ")],
                           "kernels": counts[0] if counts else None}),
               flush=True)
         if res.returncode != 0 or not served or not counts:
-            fail(f"launcher ({mode}): rc {res.returncode}, "
-                 f"stderr {res.stderr[-400:]!r}")
+            fail(f"launcher ({mode}, {shards} shards): rc "
+                 f"{res.returncode}, stderr {res.stderr[-400:]!r}")
         add_sizes(sizes, counts[0])
         shapes.extend(tuple(s) for s in counts[0]["merge_shapes"])
+
+
+# the sharded phase: shard workers of each run; the closure's chains,
+# nodes per chain and capacities (per shard: 129,024 pairs over 4 shards)
+SHARDS = 4
+CLOSURE_CHAINS, CLOSURE_NODES = 64, 64
+CLOSURE_CAPS = {"edge_cap": 1 << 16, "delta_cap": 1 << 13,
+                "slot_cap": 1 << 12, "join_cap": 1 << 13}
+# the launches each sharded run must show (run 2 adds the merge ranks of
+# its AI mirrors and the sketch planner's unique mask)
+SHARDED_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted")
+
+
+def timed_exchange(e) -> dict:
+    """Wrap a sharded engine's ``exchange.exchange`` to sum its wall time
+    (the device path ends in copies to the host, so the time includes
+    the card's work); returns the running totals."""
+    acc = {"calls": 0, "seconds": 0.0}
+    inner = e.exchange.exchange
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        acc["seconds"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return out
+    e.exchange.exchange = timed
+    return acc
+
+
+def exchange_totals(logs) -> dict:
+    return {"flushes": len(logs),
+            "rows_exchanged": sum(log["rows"] for log in logs),
+            "payload_bytes": sum(log["payload_bytes"] for log in logs),
+            "padded_bytes": sum(log["padded_bytes"] for log in logs),
+            "payload_bytes_wire": sum(log["payload_bytes_wire"]
+                                      for log in logs),
+            "padded_bytes_wire": sum(log["padded_bytes_wire"]
+                                     for log in logs),
+            "max_slot_cap": max((log["slot_cap"] for log in logs),
+                                default=0),
+            "device_flushes": sum(bool(log["device"]) for log in logs)}
+
+
+def release(e) -> None:
+    """Free a sharded engine's device caches (parent and workers)."""
+    for ops in [e.ops] + [w.ops for w in e.workers]:
+        ops.cache.clear()
+
+
+def sharded_run(torch, label: str, preset: str, overrides: dict, facts,
+                queries, devices, sizes: dict, shapes: list,
+                append=None) -> dict:
+    """One ``shards=SHARDS`` run on the card: load ``facts``, ``infer()``
+    (then, with ``append``, insert that batch and ``infer()`` again; no
+    ``infer()`` under demand) and ask ``queries``; the kernel counts are reset just before the load
+    and read just after the queries.  ``devices`` given, the exchange is
+    the device transport over them; else the engine's default.  Prints
+    the run's line (rounds, rows and bytes exchanged, the exchange's
+    time, the critical path, load/infer/query seconds, launches, sizes)
+    and adds its launches by size to ``sizes``.  Returns the engine and
+    its results."""
+    from repro_torch import kernels
+    from repro_torch.core import HiperfactEngine
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.core.sharded import ShardedEngine, decoded_fact_checksum
+    from repro_torch.distributed.pipeline import FrontierExchange
+
+    cfg = engine_config(preset, {**overrides, "shards": SHARDS})
+    e = HiperfactEngine(cfg)
+    if not isinstance(e, ShardedEngine) or len(e.workers) != SHARDS:
+        fail(f"sharded {label}: shards={SHARDS} built {type(e).__name__}")
+    if devices is not None:
+        e.exchange = FrontierExchange(SHARDS, compress=e.exchange.compress,
+                                      devices=devices)
+    acc = timed_exchange(e)
+    e.add_rules(rdfs_plus_rules())
+    n_shapes = len(shapes)
+    kernels.reset_counts()  # this sharded run starts here
+    t0 = time.perf_counter()
+    e.insert_facts(facts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # demand never infers: each query materializes its own cone
+    infers = [] if cfg.eval_mode == "demand" else [e.infer()]
+    if append is not None:
+        e.insert_facts(append)
+        infers.append(e.infer())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows = row_sets(e, queries)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = kernels.counts()  # ... and ends here
+    add_sizes(sizes, counts)
+    st = e.last_infer
+    rounds = [r for s in infers for r in s.rounds]
+    out = {"engine": e, "rows": rows, "checksum": decoded_fact_checksum(e),
+           "facts_inferred": [s.facts_inferred for s in infers],
+           "launches": counts["launches"]}
+    rec = {"sharded": label, "shards": SHARDS, "preset": preset,
+           "eval_mode": cfg.eval_mode, "sort_mode": cfg.sort_mode,
+           "compress": e.workers[0].ops.compress,
+           "wire_compress": e.exchange.compress,
+           "transport": "device" if devices is not None else "default",
+           "base_facts": len(facts),
+           "appended": 0 if append is None else len(append),
+           "load_s": t1 - t0, "infer_s": t2 - t1, "query_s": t3 - t2,
+           "rounds": [s.iterations for s in infers],
+           "critical_path_s": sum(r["critical_path_s"] for r in rounds),
+           "worker_s_sum": sum(sum(r["worker_seconds"]) for r in rounds),
+           "exchange_s": acc["seconds"], "exchange_calls": acc["calls"],
+           **exchange_totals(e.exchange_log),
+           "facts_inferred": out["facts_inferred"],
+           "num_facts": e.num_facts(), "resident_facts": e.resident_facts(),
+           "demand_rounds": st.demand_rounds,
+           "demand_cone_rows": st.demand_cone_rows,
+           "demand_fallbacks": st.demand_fallbacks,
+           "rows": [len(r) for r in rows], "checksum": out["checksum"],
+           "launches": counts["launches"],
+           "sort_sizes": counts["sort_sizes"],
+           "search_sizes": counts["search_sizes"],
+           "merge_shapes": sorted(set(shapes[n_shapes:])),
+           "width_fallbacks": counts["fallbacks"]}
+    print(json.dumps(rec), flush=True)
+    return out
+
+
+def sharded_phase(torch, oracle: dict, seed: int, sizes: dict,
+                  shapes: list) -> dict:
+    """The sharded engine (``shards=SHARDS``) on the card, every run held
+    against numpy: run 1 (``infer1``, full, ``oracle``'s facts) with the
+    exchange's device transport over ``[cuda:0] * SHARDS`` — every flush
+    on the device; run 2 (``query1`` compressed, sketch planner, delta)
+    on the default transport — the host permute on one card, every flush
+    saying so — then one appended batch of new students and a second
+    ``infer()``, against a numpy unsharded engine stepped the same way;
+    run 3 demand (``infer1``) with ``LUBM_QUERIES`` and the point
+    queries, no fallback; all three over the engine phase's facts
+    (``oracle``).  Then the serving
+    launcher at ``--shards SHARDS`` and ``DistributedClosure`` over
+    ``[cuda:0] * SHARDS`` against the closed form.  Every run adds its
+    launches by size and merge shapes to ``sizes``/``shapes``.  Returns
+    the runs' kernel launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import HiperfactEngine
+    from repro_torch.core.distributed import ClosureConfig, DistributedClosure
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.core.sharded import decoded_fact_checksum
+    from repro_torch.datasets import LUBM_QUERIES
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in kernels.ENGINE_KERNELS}
+
+    def tally(label, counts, names):
+        require_launches(f"sharded {label}", counts, names)
+        for k in launches:
+            launches[k] += counts[k]
+
+    # run 1: the device transport at full scale
+    n_q = len(LUBM_QUERIES)
+    cuda0 = [torch.device("cuda", 0)] * SHARDS
+    r1 = sharded_run(torch, "device", "infer1", {}, oracle["facts"],
+                     LUBM_QUERIES, cuda0, sizes, shapes)
+    e = r1["engine"]
+    if r1["checksum"] != oracle["checksum"]:
+        fail("sharded device: decoded fact checksum differs from numpy")
+    if r1["facts_inferred"] != [oracle["facts_inferred"]]:
+        fail(f"sharded device: facts_inferred {r1['facts_inferred']} != "
+             f"{oracle['facts_inferred']} (numpy)")
+    if r1["rows"] != oracle["rows"][:n_q]:
+        fail("sharded device: query row sets differ from numpy")
+    if not e.exchange_log or not all(log["device"]
+                                     for log in e.exchange_log):
+        fail("sharded device: a flush took the host permute")
+    tally("device", r1["launches"], SHARDED_KERNELS)
+    release(e)
+    del e, r1
+
+    # run 2: the default transport, an append, a second infer()
+    rng = np.random.RandomState(seed + 7)
+    batch = [f for i in range(64) for f in new_student(rng, 9, i)]
+    r2 = sharded_run(torch, "default+append", "query1",
+                     {"compress": True, "sort_mode": "sketch",
+                      "eval_mode": "delta"}, oracle["facts"], LUBM_QUERIES,
+                     None, sizes, shapes, append=batch)
+    e = r2["engine"]
+    if any(log["device"] for log in e.exchange_log):
+        fail("sharded default+append: a flush took the device transport "
+             "on one card")
+    t0 = time.perf_counter()
+    ref = HiperfactEngine(engine_config("query1", {"eval_mode": "delta",
+                                                   "backend": "numpy"}))
+    ref.add_rules(rdfs_plus_rules())
+    ref.insert_facts(oracle["facts"])
+    want_inferred = [ref.infer().facts_inferred]
+    ref.insert_facts(batch)
+    want_inferred.append(ref.infer().facts_inferred)
+    want = {"checksum": decoded_fact_checksum(ref),
+            "rows": row_sets(ref, LUBM_QUERIES)}
+    print(json.dumps({"oracle": "numpy", "sharded": "default+append",
+                      "eval_mode": "delta", "facts_inferred": want_inferred,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    del ref
+    if r2["checksum"] != want["checksum"]:
+        fail("sharded default+append: decoded fact checksum differs from "
+             "numpy")
+    if r2["facts_inferred"] != want_inferred:
+        fail(f"sharded default+append: facts_inferred "
+             f"{r2['facts_inferred']} != {want_inferred} (numpy)")
+    if r2["rows"] != want["rows"]:
+        fail("sharded default+append: query row sets differ from numpy")
+    tally("default+append", r2["launches"],
+          SHARDED_KERNELS + ("merge_ranks", "unique_mask_sorted"))
+    release(e)
+    del e, r2
+
+    # run 3: demand, every query materializing its cone across the shards
+    r3 = sharded_run(torch, "demand", "infer1", {"eval_mode": "demand"},
+                     oracle["facts"], LUBM_QUERIES + point_queries(), None,
+                     sizes, shapes)
+    e = r3["engine"]
+    if e.last_infer.demand_fallbacks:
+        fail(f"sharded demand: {e.last_infer.demand_fallbacks} fallbacks "
+             "to infer()")
+    if r3["rows"] != oracle["rows"]:
+        fail("sharded demand: query row sets differ from numpy")
+    tally("demand", r3["launches"], SHARDED_KERNELS)
+    release(e)
+    del e, r3
+
+    launcher_phase(sizes, shapes, runs=(("delta", SHARDS),))
+
+    # the distributed closure: disjoint chains, against the closed form
+    nodes = np.arange(CLOSURE_CHAINS * CLOSURE_NODES, dtype=np.int64)
+    src = nodes[nodes % CLOSURE_NODES != CLOSURE_NODES - 1]
+    a, b = np.triu_indices(CLOSURE_NODES, 1)
+    base = np.arange(CLOSURE_CHAINS, dtype=np.int64)[:, None] * CLOSURE_NODES
+    want = np.sort((((base + a) << 32) | (base + b)).ravel())
+    t0 = time.perf_counter()
+    got, iters = DistributedClosure(cuda0, ClosureConfig(**CLOSURE_CAPS)).run(
+        src, src + 1, max_iters=2 * CLOSURE_NODES)
+    torch.cuda.synchronize()
+    print(json.dumps({"closure": "DistributedClosure", "shards": SHARDS,
+                      "chains": CLOSURE_CHAINS, "nodes": CLOSURE_NODES,
+                      "edges": len(src), "pairs": len(got),
+                      "closed_form_pairs": len(want), "iterations": iters,
+                      "seconds": time.perf_counter() - t0,
+                      "equal": bool(np.array_equal(got, want))}),
+          flush=True)
+    if not np.array_equal(got, want):
+        fail(f"closure: {len(got)} pairs, the closed form has {len(want)}")
+    print(json.dumps({"phase": "sharded", "seconds":
+                      time.perf_counter() - t_phase,
+                      "launches": launches, "card": card_line()}),
+          flush=True)
+    return launches
 
 
 # (config, the launch counts its forward raises once per layer) of the LM
@@ -1766,6 +2042,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
 
+    t_smoke = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -1796,8 +2073,10 @@ def main() -> int:
             fail(f"kernel {name} never launched in the demand and serving "
                  "phases")
     launches = {k: launches[k] + seen[k] for k in launches}
-    del oracle
     launcher_phase(sizes, shapes)
+    sharded = sharded_phase(torch, oracle, args.seed, sizes, shapes)
+    launches = {k: launches[k] + sharded[k] for k in launches}
+    del oracle
     undo()
     print(json.dumps({"path_sizes": {
         group: {k: dict(sorted(v.items())) for k, v in per.items()}
@@ -1828,6 +2107,8 @@ def main() -> int:
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], **extra})
+    print(json.dumps({"phase": "all", "seconds":
+                      time.perf_counter() - t_smoke}), flush=True)
     print(json.dumps({"kernels": line, "queued": QUEUED, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,10 +65,16 @@ class EngineConfig:
       query's cone at query time (``core.demand``).
     * ``query_cache`` / ``lazy`` — the paper §5 rank-N result cache and
       Defs. 10/11 active-rule pruning.
-    * ``shards`` — the hash-partitioned engine is not ported yet
-      (ROADMAP A9): a count above 1 raises ``NotImplementedError``;
-      ``"auto"`` resolves to ``torch.cuda.device_count()`` on the
-      ``torch`` backend and 1 elsewhere.
+    * ``shards`` — N > 1 hash-partitions every fact table by the rank-1
+      key across N shard workers and runs the semi-naive fixpoint per
+      shard with an all-to-all frontier exchange between rounds
+      (``core.sharded``); ``"auto"`` uses ``torch.cuda.device_count()``
+      on the ``torch`` backend and 1 elsewhere.  Constructing
+      ``HiperfactEngine(config)`` with shards > 1 returns a
+      ``core.sharded.ShardedEngine``; ``shards=1`` is the unsharded
+      engine.  The workers share the backend's one device; on the
+      ``torch`` backend the exchange runs over N distinct CUDA devices
+      when torch sees them, and as a host permute otherwise.
     * ``result_cache`` — repeat-query fast path: decoded results of
       ``query()`` are memoized per (conditions, input-table versions)
       and re-served without re-entering evaluation.  Disabled when
@@ -264,15 +270,21 @@ def _resolve_shards(config: EngineConfig) -> int:
 
 
 class HiperfactEngine:
+    def __new__(cls, config: EngineConfig | None = None, *args, **kwargs):
+        # shards > 1 transparently constructs the hash-partitioned
+        # engine; subclasses (ShardedEngine, its workers) skip the
+        # dispatch so their own __init__ chains stay ordinary
+        if (cls is HiperfactEngine and config is not None
+                and _resolve_shards(config) > 1):
+            from repro_torch.core.sharded import ShardedEngine
+            return super().__new__(ShardedEngine)
+        return super().__new__(cls)
+
     def __init__(self, config: EngineConfig | None = None) -> None:
         self.config = config or EngineConfig()
         if self.config.eval_mode not in ("full", "delta", "auto", "demand"):
             raise ValueError(
                 f"unknown eval_mode: {self.config.eval_mode!r}")
-        if _resolve_shards(self.config) > 1:
-            raise NotImplementedError(
-                "the sharded engine (shards > 1) is not ported yet "
-                "(ROADMAP A9)")
         self.ops = get_backend(self.config.backend,
                                compress=self.config.compress)
         self.store = FactStore(self.config.index_backend, ops=self.ops)
@@ -325,7 +337,7 @@ class HiperfactEngine:
         # cone's input types at last materialization (a repeat query at
         # unchanged versions skips propagation entirely)
         self._demand_done: dict[tuple, tuple] = {}
-        self._demand_skip = False  # A9 shard workers: parent owns the cone
+        self._demand_skip = False  # shard workers: parent owns the cone
 
     # ------------------------------------------------------------------ API
     def _intern_rule_constants(self, rule: Rule) -> None:

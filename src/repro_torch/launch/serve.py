@@ -4,8 +4,8 @@
         --writers 2 --readers 4 --write-ops 20 --reads 50
 
 ``--backend`` is ``torch`` (the CUDA device; raises without one),
-``torch-cpu`` or ``numpy``.  ``--shards`` above 1 raises: the sharded
-engine is not ported yet (ROADMAP A9).
+``torch-cpu`` or ``numpy``.  ``--shards`` above 1 serves a
+``ShardedEngine`` (``core.sharded``) of that many shard workers.
 """
 
 from __future__ import annotations
@@ -20,9 +20,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="torch")
     ap.add_argument("--eval-mode", default="delta")
-    ap.add_argument("--shards", type=int, default=1,
-                    help="above 1 raises until the sharded engine is "
-                    "ported (ROADMAP A9)")
+    ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--chains", type=int, default=8)
     ap.add_argument("--hops", type=int, default=8)
     ap.add_argument("--writers", type=int, default=2)

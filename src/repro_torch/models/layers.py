@@ -14,7 +14,7 @@ implementations:
   reference's ``fused_attention`` does through the Pallas kernel on a TPU.
 
 The reference's ``Hints`` (activation sharding constraints) have no
-counterpart yet: sharding is ROADMAP A9.
+counterpart yet: the LM's sharding is ROADMAP A11.5.
 """
 
 from __future__ import annotations
@@ -295,7 +295,7 @@ def decode_attention_partial(q, k_cache, v_cache, valid_mask):
 
 def combine_decode_partials(o, m, l):
     """Normalize one partial (the single-device form: no cross-shard
-    combine until sharding lands, ROADMAP A9)."""
+    combine until the LM's sharding lands, ROADMAP A11.5)."""
     return o / torch.clamp(l, min=1e-30)[..., None]
 
 

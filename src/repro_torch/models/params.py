@@ -5,8 +5,8 @@ tree (nested dicts and lists) of ``LeafSpec``; ``init_params`` turns it
 into a tree of the same layout holding tensors, so the reference's
 params carry across leaf by leaf (``models/convert.py``).
 
-The logical axes are kept for a later sharding slice (ROADMAP A9); the
-port reads none of them yet.  ``abstract_params`` and ``axes_tree`` are
+The logical axes are kept for the LM's sharding slice (ROADMAP A11.5);
+the port reads none of them yet.  ``abstract_params`` and ``axes_tree`` are
 dry-run tools of the reference and are not ported.
 """
 

@@ -366,7 +366,7 @@ class FactServer:
     # ------------------------------------------------------------ snapshots
     def _stores(self) -> list:
         eng = self.engine
-        if hasattr(eng, "workers"):  # the sharded engine (ROADMAP A9)
+        if hasattr(eng, "workers"):  # a ShardedEngine: one store per shard
             return [w.store for w in eng.workers]
         return [eng.store]
 

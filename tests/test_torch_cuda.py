@@ -498,6 +498,81 @@ def test_cuda_fact_server_threads_equal_numpy(cuda):
     assert checked == len(served)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_cuda_frontier_exchange_equals_host(cuda, compress):
+    """The exchange's device transport over ``[cuda] * 4`` (the scatter
+    and slot permute on the card) returns exactly the host permute's
+    lanes, in the same order, and the same payload accounting; the
+    padded bytes are the bounded buffers' ``4 * 4 * slot_cap`` rows."""
+    from repro_torch.distributed.pipeline import FrontierExchange
+    r = rng("cxchg", compress)
+    dest = [r.randint(0, 4, n).astype(np.int32) for n in (0, 5, 300, 77)]
+    key = [(r.randint(0, 1 << 20, len(d)).astype(np.int64) << 32)
+           | r.randint(0, 40, len(d)) for d in dest]
+    val = [r.randint(-(1 << 62), 1 << 62, len(d)).astype(np.int64)
+           for d in dest]
+    meta = [r.randint(0, 1 << 24, len(d)).astype(np.int64) for d in dest]
+    dev = FrontierExchange(4, compress=compress, devices=[cuda] * 4)
+    host = FrontierExchange(4, prefer_device=False, compress=compress)
+    assert dev.device and not host.device
+    got, gs = dev.exchange(dest, key, val, meta)
+    want, ws = host.exchange(dest, key, val, meta)
+    for d in range(4):
+        for a, b in zip(got[d], want[d]):
+            np.testing.assert_array_equal(a, b)
+    for k in ("rows", "payload_bytes", "payload_bytes_wire", "slot_cap"):
+        assert gs[k] == ws[k], k
+    assert gs["padded_bytes"] == 16 * gs["slot_cap"] * 24
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_engine_equals_numpy(cuda):
+    """``shards=4`` on the card over ``lubm_like(5)``: once with the
+    exchange's device transport over ``[cuda] * 4``, once on its default
+    (the host permute on one card), each equal to the unsharded numpy
+    engine (checksum, ``facts_inferred``, the ``LUBM_QUERIES`` row sets)
+    through the workers' sort and probe kernels; and the distributed
+    closure over ``[cuda] * 4`` against its closed form."""
+    from repro_torch.core import EngineConfig, HiperfactEngine
+    from repro_torch.core.distributed import ClosureConfig, DistributedClosure
+    from repro_torch.core.rulesets import rdfs_plus_rules
+    from repro_torch.core.sharded import ShardedEngine, decoded_fact_checksum
+    from repro_torch.datasets import LUBM_QUERIES, lubm_like
+    from repro_torch.distributed.pipeline import FrontierExchange
+    facts = lubm_like(5)
+    out = []
+    for backend, shards, devices in (("numpy", 1, None),
+                                     ("torch", 4, [cuda] * 4),
+                                     ("torch", 4, None)):
+        cfg = EngineConfig.infer1(backend=backend)
+        cfg.eval_mode, cfg.shards = "full", shards
+        e = HiperfactEngine(cfg)
+        if devices is not None:
+            e.exchange = FrontierExchange(4, compress=e.exchange.compress,
+                                          devices=devices)
+        e.add_rules(rdfs_plus_rules())
+        kernels.reset_counts()
+        e.insert_facts(facts)
+        s = e.infer()
+        rows = [{tuple(sorted(r.items())) for r in e.query(q)}
+                for q in LUBM_QUERIES]
+        if shards > 1:
+            assert isinstance(e, ShardedEngine)
+            assert {log["device"] for log in e.exchange_log} == {
+                devices is not None}
+            assert all(kernels.LAUNCHES[k] > 0 for k in
+                       ("bitonic_sort", "bitonic_sort_kv", "probe_sorted"))
+        out.append((s.facts_inferred, rows, decoded_fact_checksum(e)))
+    assert out[0] == out[1] == out[2]
+    n, hops = 16, 16
+    src = np.arange(n * hops) + np.arange(n * hops) // hops
+    pairs, iters = DistributedClosure([cuda] * 4, ClosureConfig()).run(
+        src, src + 1)
+    assert len(pairs) == n * hops * (hops + 1) // 2 and iters == hops
+
+
 # -- the LM kernels ------------------------------------------------------------
 
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}

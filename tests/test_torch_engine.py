@@ -166,16 +166,18 @@ def test_load_reference_state_rejects_mismatched_ids():
 
 
 def test_unported_modes_raise():
-    """Only the sharded engine (A9) still raises; demand evaluation is
-    ported (``tests/test_torch_demand.py``), and compressed columns are
-    on by default and take either flag."""
+    """No engine mode raises any more: demand evaluation is ported
+    (``tests/test_torch_demand.py``), the sharded engine too
+    (``tests/test_torch_sharded.py``), and compressed columns are on by
+    default and take either flag."""
+    from repro_torch.core.sharded import ShardedEngine
     assert HiperfactEngine(EngineConfig(
         backend="torch-cpu", eval_mode="demand"))._counting
-    with pytest.raises(NotImplementedError, match="A9"):
-        HiperfactEngine(EngineConfig(backend="torch-cpu",
+    e = HiperfactEngine(EngineConfig(backend="torch-cpu",
                                      eval_mode="demand", shards=2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        HiperfactEngine(EngineConfig(backend="torch-cpu", shards=2))
+    assert isinstance(e, ShardedEngine) and e._counting
+    e = HiperfactEngine(EngineConfig(backend="torch-cpu", shards=2))
+    assert isinstance(e, ShardedEngine) and len(e.workers) == 2
     for flag in (True, False):
         assert HiperfactEngine(EngineConfig(
             backend="torch-cpu", compress=flag)).ops.compress is flag

@@ -77,6 +77,48 @@ def test_serve_launcher_refuses_to_run_without_cuda(monkeypatch):
             serve.main()
 
 
+def test_walk_reaches_the_sharded_slice():
+    """The import check walks the sharded engine, its exchange and the
+    Rete baseline too."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.sharded", "repro_torch.core.distributed",
+            "repro_torch.core.rete_baseline", "repro_torch.distributed",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.sharding"} <= names
+
+
+def test_sharded_engine_refuses_to_run_without_cuda(monkeypatch):
+    """``shards=4`` on the default ``torch`` backend, through the engine
+    and through the serving launcher, raises without a card; the
+    exchange's own device list takes no CPU stand-in either."""
+    import torch
+
+    from repro_torch.core import EngineConfig, HiperfactEngine
+    from repro_torch.distributed.pipeline import FrontierExchange
+    from repro_torch.distributed.sharding import fact_devices
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HiperfactEngine(EngineConfig(shards=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HiperfactEngine(EngineConfig(backend="torch", shards=4,
+                                     eval_mode="demand"))
+    monkeypatch.setattr(sys, "argv", ["serve", "--shards", "4",
+                                      "--write-ops", "1", "--reads", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
+    with pytest.raises(ValueError, match="CUDA devices"):
+        fact_devices(4)
+    # asked for the device path without a device list, the exchange
+    # permutes on the host and says so in every log entry
+    assert not FrontierExchange(4).device
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

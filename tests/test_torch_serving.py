@@ -569,8 +569,26 @@ def test_served_requery_parity_matrix(mode):
 
 @pytest.mark.parametrize("mode", ["full", "delta", "demand"])
 def test_served_engine_with_shards_raises_naming_a9(mode):
-    with pytest.raises(NotImplementedError, match="A9"):
-        P.HiperfactEngine(_cfg(P, "torch-cpu", eval_mode=mode, shards=2))
+    """The sharded engine is ported (ROADMAP A9): a ``FactServer`` over
+    two shards serves the point query the reference's two-shard numpy
+    engine answers, before and after an append."""
+    def build(m, backend):
+        e = m.HiperfactEngine(_cfg(m, backend, eval_mode=mode, shards=2))
+        e.add_rules(closure_rules(m))
+        e.insert_facts(chain_facts(m))
+        if mode != "demand":
+            e.infer()
+        return e
+    with FactServer(build(P, "torch-cpu"), batching=False) as srv, \
+            RefServer(build(R, "numpy"), batching=False) as rsrv:
+        assert len(srv.engine.workers) == 2
+        for step in range(2):
+            if step:
+                srv.append([extra_edge(P)])
+                rsrv.append(to_ref([extra_edge(P)]))
+            res, rres = srv.serve(path_q(P)), rsrv.serve(path_q(R))
+            assert rows_key(res.rows) == rows_key(rres.rows)
+            assert res.checksum() == rres.checksum()
 
 
 # ---------------------------------------------------------------------------
