@@ -57,15 +57,24 @@ Phases, each fatal on failure:
    disjoint chains of 64 nodes against the closed form (129,024 pairs).
    Every run of this phase records its kernels' launches by size and
    its index-mirror merge shapes (``path_sizes``) for the kernel phase;
-4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4) and then
-   ``mamba2-1.3b`` (48 layers, d=2048, SSD) at full width with random
-   weights from ``--seed``, each served greedily: B = 2 prompts of
-   S = 2048 random tokens through ``prefill_fn`` (``max_len = S + 16``),
-   then 16 ``decode_fn`` steps.  The first decode step's logits must match ``hidden()`` over
+4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4), ``mamba2-1.3b``
+   (48 layers, d=2048, SSD) and ``recurrentgemma-9b`` (38 layers: 12
+   groups of two RG-LRU blocks and a local-attention block, then two
+   RG-LRU blocks; d=4096, 16/1 heads at head dim 256, window 2048) at
+   full width with random weights from ``--seed`` (the SSM and RG-LRU
+   conv taps drawn as upstream's), each served greedily: B = 2 prompts
+   of S random tokens (2048; 4096 for recurrentgemma, past its window)
+   through ``prefill_fn`` (``max_len = S + 16``), then 16 ``decode_fn``
+   steps.  The first decode step's logits must match ``hidden()`` over
    the prompt plus that token (``3e-2 * max(1, scale)``, as the
-   reference's decode test), and the two forwards must have launched
+   reference's decode test; ``1e-3 * max(1, scale)`` with the same
+   weights in float32), and the two forwards must have launched
    ``flash_attention`` (yi, every launch on the tensor-core ``wgmma``
-   route) or ``ssd_intra`` (mamba2) once per layer each;
+   route; recurrentgemma, every launch on the CUDA-core route) or
+   ``ssd_intra`` (mamba2) once per attention or SSD layer each; then a
+   profiled prefill (device busy share, attention's device time, and
+   for recurrentgemma one layer's RG-LRU scan timed apart with its share
+   of the prefill) and a profiled 4-step decode window;
 5. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shape the fact path gave
    them, the LM kernels at the prefill shapes of the LM phase),
@@ -86,11 +95,16 @@ Phases, each fatal on failure:
    rows), each checked bit for bit; the sorts, the probe and the unique
    mask bit-checked at both ends of every size bucket the fact path
    launched them at (``path_shape_checks``); ``ssd_intra``'s gram pass
-   timed apart (``gram_ms``);
+   timed apart (``gram_ms``); attention also at recurrentgemma-9b's
+   prefill (head dim 256, 16/1 heads, window 2048, bf16, the CUDA-core
+   route; the same in float32 and a ragged head-dim-192 case), beside
+   SDPA with the band as an explicit mask (its backend named);
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
-   inputs (``simt_ms``) and counts the LM phase's launches by route;
+   inputs (``simt_ms``) and counts yi's launches by route; its
+   ``flash_attention@hd256`` row (the same wrapper at head dim 256)
+   counts recurrentgemma's launches and carries ``sdpa_ms``;
    the merge ranks' row times its two launches apart (``left_ms``,
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
@@ -678,9 +692,41 @@ def float_err(torch, got, want, tol: float, what: str) -> float:
     return err
 
 
+def sdpa_backend(torch, fn) -> tuple[str, str]:
+    """(backend, its heaviest device kernel) of ``fn``, a
+    ``scaled_dot_product_attention`` call, read from the kernel names a
+    profile of it shows: PyTorch's dispatcher picks the backend and does
+    not report it.  The tracer can miss a session's first launches after
+    earlier profiles in one process (``sort_split``), so a spin kernel
+    and a pause go first and three calls run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    per = {k: v for k, v in device_events(prof).items() if "spin" not in k}
+    if not per:
+        return "not measured", "not measured"
+    names = " ".join(per).lower()
+    top = max(per.items(), key=lambda kv: kv[1][0])[0]
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend, top[:80]
+    return "math", top[:80]
+
+
 def lm_kernel_rows(torch, rng, reps: int) -> dict:
     """The LM kernels at the LM phase's prefill shapes, against their
-    plain versions; plus a windowed and an unaligned attention case."""
+    plain versions; plus windowed, unaligned and wide-head attention
+    cases."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -759,6 +805,68 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         # multiply-add, at the bf16 tensor-core peak (the inputs' type)
         "bound": bound_ms(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
                           4 * B * Hq * hd * band, BF16_OPS_PER_S)}
+
+    # flash_attention at head dim 256: recurrentgemma-9b's prefill, B=2,
+    # S=4096, Hq=16 over Hkv=1, causal, window 2048, bf16, on the
+    # CUDA-core route (2e-2 as the bf16 cases); then the same in float32
+    # (1e-5) and a ragged Sq != Skv case at head dim 192, both dtypes
+    del q, k, v, qt, kt_, vt
+    B, S, Hq, Hkv, hd, W = 2, 4096, 16, 1, 256, 2048
+    q = normal(B, S, Hq, hd, dtype=torch.bfloat16)
+    k, v = (normal(B, S, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+    before = dict(kernels.LAUNCHES)
+    err = float_err(
+        torch, flash_attention(q, k, v, causal=True, window=W),
+        flash_attention_plain(q, k, v, causal=True, window=W), 2e-2,
+        "flash_attention (recurrentgemma prefill, hd 256)")
+    if (kernels.LAUNCHES["flash_attention"] != before["flash_attention"] + 1
+            or kernels.LAUNCHES["flash_attention_wgmma"]
+            != before["flash_attention_wgmma"]):
+        fail("flash_attention (hd 256) did not take the simt route")
+    side = [attention_case(*c) for c in (
+        (B, S, S, Hq, Hkv, hd, W, torch.float32, 1e-5, "simt"),
+        (2, 77, 300, 16, 1, 192, 100, torch.bfloat16, 2e-2, "simt"),
+        (2, 77, 300, 16, 1, 192, 100, torch.float32, 1e-5, "simt"))]
+    # the yardstick: SDPA with the band as an explicit boolean mask over
+    # K/V repeated to every query head (the repeat is outside the call)
+    qt = q.transpose(1, 2).contiguous()
+    kt_, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+               .contiguous() for x in (k, v))
+    pos = torch.arange(S, device=dev)
+    band_mask = ((pos[:, None] >= pos[None, :])
+                 & (pos[:, None] - pos[None, :] < W))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt_, vt,
+                                              attn_mask=band_mask)
+    backend, backend_kernel = sdpa_backend(torch, sdpa)
+    # that the yardstick computes the same function (recorded, not gated)
+    sdpa_err = float((sdpa().transpose(1, 2).float()
+                      - flash_attention(q, k, v, causal=True, window=W)
+                      .float()).abs().max())
+    # (query, key) pairs in the causal band under the window
+    band = W * (W + 1) // 2 + (S - W) * W
+    out["flash_attention@hd256"] = {
+        "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
+        "window": W, "route": "simt", "max_abs_err": err, "tolerance": 2e-2,
+        "side_cases": side, "band_pairs": band,
+        "kernel_ms": time_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True, window=W),
+            reps),
+        "plain_ms": time_ms(
+            torch, lambda: flash_attention_plain(q, k, v, causal=True,
+                                                 window=W), reps),
+        "library_ms": time_ms(torch, sdpa, reps),
+        "library_call": "F.scaled_dot_product_attention(attn_mask=band, "
+                        "K/V repeated to 16 heads)",
+        "sdpa_backend": backend, "sdpa_kernel": backend_kernel,
+        "sdpa_max_abs_err": sdpa_err,
+        # bytes: q, k, v read once, out written once (bf16); operations:
+        # the band's two products (QK^T and PV), 2 FLOPs per multiply-add,
+        # at the bf16 tensor-core peak (the inputs' type)
+        "bound": bound_ms(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
+                          4 * B * Hq * hd * band, BF16_OPS_PER_S)}
+    del q, k, v, qt, kt_, vt, band_mask
 
     # ssd_intra: mamba2-1.3b's prefill, b=2, nc=8, Q=256, nh=64, hp=64,
     # N=128, float32; 1e-4 of max|y| and of max|state| (sums over Q and N
@@ -1821,19 +1929,32 @@ def sharded_phase(torch, oracle: dict, seed: int, sizes: dict,
     return launches
 
 
-# (config, the launch counts its forward raises once per layer) of the LM
-# phase: yi's attention must take the tensor-core route every time
-LM_MODELS = [("yi-6b", ("flash_attention", "flash_attention_wgmma")),
-             ("mamba2-1.3b", ("ssd_intra",))]
+# (config, its kernel's row in the kernels line, the launch counts each of
+# its forwards raises once per attention or SSD layer, prompt tokens) of
+# the LM phase.  yi's attention must take the tensor-core route every
+# time; recurrentgemma's (head dim 256) the CUDA-core one.  2048 tokens
+# put yi's attention on the kernel's branch (> 1024) and give mamba2 8
+# chunks of 256; recurrentgemma's 4096 pass its 2048-key window, so the
+# kernel's window mask and kv-tile skip run in prefill, the prefill cache
+# takes the full-ring branch and every decode step overwrites a live slot
+LM_MODELS = [
+    ("yi-6b", "flash_attention", ("flash_attention", "flash_attention_wgmma"),
+     2048),
+    ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048),
+    ("recurrentgemma-9b", "flash_attention@hd256", ("flash_attention",),
+     4096)]
 LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
-# prompts, prompt tokens (> 1024 puts yi's attention on the kernel's
-# branch; 8 chunks of 256 for mamba2) and greedy decode steps
-LM_BATCH, LM_SEQ, LM_STEPS = 2, 2048, 16
+# the block kinds whose forward launches an LM kernel once (RG-LRU blocks
+# launch none: their scan is plain PyTorch, as the reference's is XLA)
+KERNEL_KINDS = ("attn", "local", "ssm")
+# prompts and greedy decode steps
+LM_BATCH, LM_STEPS = 2, 16
 
 
-def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
-    """Greedy serving of each LM at full width; returns each LM kernel's
-    launches over its model's run."""
+def lm_phase(torch, seed: int, batch: int, steps: int,
+             models=LM_MODELS) -> dict:
+    """Greedy serving of each LM at full width; returns, for each LM
+    kernel row, its launches over its model's run and their routes."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1842,17 +1963,20 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
                                     param_count)
 
     launches = {}
-    for arch, own in LM_MODELS:
+    for arch, row, own, seq in models:
         cfg = get_config(arch)
         model = build_model(cfg)
         spec = model.spec()
         t0 = time.perf_counter()
         params = init_params(spec, seed)
-        if cfg.family == "ssm":
-            seed_conv_taps(torch, params, seed)
+        seed_conv_taps(torch, params, seed)
         torch.cuda.synchronize()
         print(json.dumps({"lm": arch, "layers": cfg.n_layers,
-                          "d_model": cfg.d_model, "dtype": cfg.dtype,
+                          "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                          "vocab": cfg.vocab, "heads": [cfg.n_heads,
+                                                        cfg.n_kv_heads],
+                          "head_dim": cfg.head_dim, "window": cfg.window,
+                          "dtype": cfg.dtype,
                           "params": param_count(spec),
                           "param_gb": param_bytes(spec) / 1e9,
                           "init_s": time.perf_counter() - t0}), flush=True)
@@ -1891,8 +2015,14 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
         scale = float(ref.float().abs().max())
         bound = 3e-2 * max(1.0, scale)
         del cache
-        err32, scale32 = f32_consistency(torch, cfg, params, ext, seq)
+        err32, scale32, ref32 = f32_consistency(torch, cfg, params, ext,
+                                                seq)
         bound32 = 1e-3 * max(1.0, scale32)
+        # the served bf16 forward against the float32 one on the same
+        # weights (the float32 path is the one the CPU tests hold to the
+        # reference at 1e-4): a reading, with no bound at full depth
+        bf16_vs_f32 = float((ref.float() - ref32).abs().max())
+        del ref32
         finite = bool(torch.isfinite(logits).all()
                       and torch.isfinite(first).all())
         print(json.dumps({
@@ -1908,6 +2038,8 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
             "logits_shape": list(logits.shape), "finite": finite,
             "consistency_err": err, "consistency_bound": bound,
             "f32_consistency_err": err32, "f32_consistency_bound": bound32,
+            "bf16_vs_f32_err": bf16_vs_f32,
+            "bf16_vs_f32_rel": bf16_vs_f32 / max(1.0, scale32),
             "cache_lens": lens,
             "launches": {k: counts[k] for k in LM_COUNTS}}), flush=True)
         if not finite or list(logits.shape) != [batch, cfg.vocab]:
@@ -1917,13 +2049,18 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
                  f"(bound {bound}; float32: {err32}, bound {bound32})")
         if lens != [seq + steps] * batch:
             fail(f"{arch}: cache lens {lens}")
-        # two forwards ran (the prefill and the check), each once per layer
-        want = {k: (2 * cfg.n_layers if k in own else 0) for k in LM_COUNTS}
+        # two forwards ran (the prefill and the check), each launching the
+        # model's kernel once per attention or SSD layer
+        n = sum(k.value in KERNEL_KINDS for k in cfg.block_kinds())
+        want = {k: (2 * n if k in own else 0) for k in LM_COUNTS}
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"{arch}: LM kernel launches {got}, expected {want}")
-        launches.update({k: counts[k] for k in own})
+        tc = counts["flash_attention_wgmma"]
+        launches[row] = {"launches": counts[own[0]], "routes": {
+            "wgmma": tc, "simt": counts["flash_attention"] - tc}}
         del logits, first, step, h, ref
+        lm_prefill_profile(torch, arch, model, params, prompts)
         lm_profile(torch, arch, model, params, prompts)
         del params, model
         torch.cuda.empty_cache()
@@ -1931,17 +2068,28 @@ def lm_phase(torch, seed: int, batch: int, seq: int, steps: int) -> dict:
 
 
 def seed_conv_taps(torch, params, seed: int) -> None:
-    """Draw the SSM blocks' conv taps and bias from the seed as upstream
-    Mamba-2 initializes them (``nn.Conv1d``'s default for a depthwise
-    conv of width W: uniform in +-1/sqrt(W)).  The reference's spec
-    initializes them to zeros, which makes every SSM block of a fresh
-    model output exactly 0: the SSD path would carry no signal and the
-    consistency check would be vacuous."""
-    ssm = params["blocks"]["b0"]["ssm"]
-    bound = 1.0 / ssm["conv_w"].shape[1] ** 0.5   # [layers, W, channels]
-    gen = torch.Generator(device=ssm["conv_w"].device).manual_seed(seed + 1)
-    for name in ("conv_w", "conv_b"):
-        ssm[name].uniform_(-bound, bound, generator=gen)
+    """Draw the conv taps and bias of every SSM and RG-LRU block, in the
+    stacked groups (``b0``, ``b1``, ... in order) and then the tail, from
+    one generator seeded with ``seed + 1``, as upstream initializes a
+    depthwise ``nn.Conv1d`` of width W: uniform in +-1/sqrt(W).  The
+    reference's specs initialize them to zeros, which makes every SSM
+    block of a fresh model output exactly 0 and every RG-LRU block's
+    conv output its bias alone (0): the block would carry no signal and
+    the consistency check would prove nothing.  A dense model has no
+    such block and is left as it is."""
+    gen = None
+    for blk in (*(params["blocks"][g] for g in sorted(params["blocks"])),
+                *params.get("tail", [])):
+        for kind in ("ssm", "rglru"):
+            if kind not in blk:
+                continue
+            conv = blk[kind]
+            if gen is None:
+                gen = torch.Generator(device=conv["conv_w"].device)
+                gen.manual_seed(seed + 1)
+            bound = 1.0 / conv["conv_w"].shape[-2] ** 0.5  # [.., W, ch]
+            for name in ("conv_w", "conv_b"):
+                conv[name].uniform_(-bound, bound, generator=gen)
 
 
 def f32_consistency(torch, cfg, params, ext, seq: int) -> tuple:
@@ -1949,7 +2097,8 @@ def f32_consistency(torch, cfg, params, ext, seq: int) -> tuple:
     (``cfg.dtype`` only sets the compute type): decode after a prefill of
     ``seq`` tokens against ``hidden()`` over ``seq + 1``.  In float32 the
     two differ by reassociation only, so a fault that the bf16 bound
-    could hide shows here.  Returns (max abs error, max |logit|)."""
+    could hide shows here.  Returns (max abs error, max |logit|, the
+    forward's float32 logits at position ``seq``)."""
     import dataclasses
 
     from repro_torch.models import build_model
@@ -1960,7 +2109,7 @@ def f32_consistency(torch, cfg, params, ext, seq: int) -> tuple:
         step, _ = model.decode_fn(params, ext[:, seq], cache)
         h, _ = model.hidden(params, ext)
         ref = model._logits(params, h[:, seq, :])
-    return (float((step - ref).abs().max()), float(ref.abs().max()))
+    return (float((step - ref).abs().max()), float(ref.abs().max()), ref)
 
 
 def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
@@ -1995,6 +2144,47 @@ def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
                                for k, (us, c) in top]}), flush=True)
 
 
+def lm_prefill_profile(torch, arch: str, model, params, prompts):
+    """One more prefill of the prompts under ``torch.profiler``: the
+    device busy share and top kernels, the attention kernels' device
+    time (``flash_kernel``/``flash_tc``), and for a model with RG-LRU
+    blocks one layer's linear scan at the prefill's shape timed apart
+    (CUDA events) and its share of the prefill over all such layers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rglru
+
+    seq = prompts.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill_fn(params, prompts, seq + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = device_events(prof)
+    busy = sum(us for us, _ in per.values()) / 1e6
+    attn = sum(us for k, (us, _) in per.items() if "flash" in k) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    line = {"lm_prefill_profile": arch, "wall_s": wall,
+            "device_busy_s": busy if busy else "not measured",
+            "idle_share": 1 - busy / wall if busy else "not measured",
+            "attention_device_ms": attn if busy else "not measured",
+            "top_device_kernels": [{"name": k[:80], "ms": us / 1e3,
+                                    "calls": c} for k, (us, c) in top]}
+    cfg = model.cfg
+    n_rec = sum(k.value == "rglru" for k in cfg.block_kinds())
+    if n_rec:
+        shape = (prompts.shape[0], seq, cfg.d_model)
+        a = torch.rand(shape, device="cuda") * 0.1 + 0.9
+        b = torch.randn(shape, device="cuda")
+        scan_ms = time_ms(torch, lambda: rglru._linear_scan(a, b), 5)
+        line.update({"recurrent_layers": n_rec, "scan_ms": scan_ms,
+                     "scan_share_of_prefill": n_rec * scan_ms / (wall * 1e3)})
+        del a, b
+    print(json.dumps(line), flush=True)
+
+
 KERNELS = [
     {"name": "bitonic_sort", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/bitonic_sort.cu",
@@ -2015,6 +2205,11 @@ KERNELS = [
      "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
      "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                  "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
+    # the same wrapper at head dim 256 (recurrentgemma-9b), where it takes
+    # the CUDA-core kernel's second instantiation
+    {"name": "flash_attention@hd256", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     {"name": "ssd_intra", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
@@ -2082,8 +2277,8 @@ def main() -> int:
         group: {k: dict(sorted(v.items())) for k, v in per.items()}
         for group, per in sizes.items()},
         "path_merge_shapes": sorted(set(shapes))}), flush=True)
-    launches.update(lm_phase(torch, args.seed, LM_BATCH, LM_SEQ,
-                             LM_STEPS))
+    lm = lm_phase(torch, args.seed, LM_BATCH, LM_STEPS)
+    launches.update({row: v["launches"] for row, v in lm.items()})
     rows = kernel_phase(torch, args.seed, args.reps, sorted(set(shapes)),
                         sizes)
 
@@ -2092,10 +2287,14 @@ def main() -> int:
         r = rows[k["name"]]
         extra = {}
         if k["name"] == "flash_attention":  # launches by route, and the
-            n_tc = launches["flash_attention_wgmma"]  # CUDA-core time
-            extra = {"routes": {"wgmma": n_tc,
-                                "simt": launches["flash_attention"] - n_tc},
+            extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core time
                      "simt_ms": r["simt_ms"]}
+        elif k["name"] == "flash_attention@hd256":  # launches by route, SDPA
+            extra = {"routes": lm[k["name"]]["routes"],
+                     "sdpa_ms": r["library_ms"],
+                     "sdpa_backend": r["sdpa_backend"],
+                     "sdpa_max_abs_err": r["sdpa_max_abs_err"],
+                     "window": r["window"]}
         elif k["name"] == "merge_ranks":  # the two launches apart
             extra = {"left_ms": r["left_ms"], "right_ms": r["right_ms"]}
         elif k["name"] == "ssd_intra":  # the gram pass, the old yardstick

@@ -40,6 +40,16 @@
 // Shared memory: (hd*68 + hd*36 + 32*hd + 32*68 + 128) floats, 77 KB at
 // hd = 128, so two blocks share an SM.
 //
+// Head dims.  The kernel is instantiated twice on its head-dim ceiling
+// HD_MAX, which sizes the accumulator (4 x HD_MAX/16 floats a thread):
+// HD_MAX = 128 for hd <= 128 (two blocks an SM, at most 128 registers a
+// thread) and HD_MAX = 256 for 128 < hd <= 256 (recurrentgemma's local
+// attention: 145 KB of shared memory at hd = 256, so one block an SM, and
+// up to 255 registers a thread for the 64-float accumulator).  `launch`
+// picks the instantiation from hd.  With G query heads per kv head a
+// block holds BQ = 64/G positions: at G = 16 each kv tile serves only 4
+// positions, which is correct but leaves the products short.
+//
 // Plain C interface for ctypes: launches on the given stream and returns
 // cudaGetLastError().
 
@@ -56,8 +66,6 @@ constexpr int R = 64;          // query rows per block (G heads x BQ)
 constexpr int BK = 32;         // keys per kv tile
 constexpr int RP = R + 4;      // row stride of Qt and St (float4-aligned)
 constexpr int BKP = BK + 4;    // row stride of Kt
-constexpr int HD_MAX = 128;
-constexpr int HC = HD_MAX / 16;  // accumulator columns per thread
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -83,10 +91,11 @@ struct Shape {
   int Sq, Skv, Hq, Hkv, hd, G, BQ, causal, window, offset;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename T, int HD_MAX>
+__global__ void __launch_bounds__(THREADS, HD_MAX <= 128 ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, Shape sh) {
+  constexpr int HC = HD_MAX / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int hd = sh.hd;
@@ -244,11 +253,30 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD_MAX>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              const Shape& sh, int64_t B, void* stream) {
+  const int hd = sh.hd;
+  const size_t bytes =
+      sizeof(float) * (hd * RP + hd * BKP + BK * hd + BK * RP + 2 * R);
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_kernel<T, HD_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(static_cast<unsigned>((sh.Sq + sh.BQ - 1) / sh.BQ),
+                  static_cast<unsigned>(sh.Hkv), static_cast<unsigned>(B));
+  flash_kernel<T, HD_MAX>
+      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
            int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv, int64_t hd,
            int64_t causal, int64_t window, int64_t offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || hd <= 0 || hd > HD_MAX ||
+  if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || hd <= 0 || hd > 256 ||
       hd % 4 != 0 || Hq % Hkv != 0 || Hq / Hkv > R)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape sh;
@@ -262,17 +290,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
   sh.causal = causal ? 1 : 0;
   sh.window = static_cast<int>(window);
   sh.offset = static_cast<int>(offset);
-  const size_t bytes =
-      sizeof(float) * (hd * RP + hd * BKP + BK * hd + BK * RP + 2 * R);
-  cudaFuncSetAttribute(flash_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(bytes));
-  const dim3 grid(static_cast<unsigned>((Sq + sh.BQ - 1) / sh.BQ),
-                  static_cast<unsigned>(Hkv), static_cast<unsigned>(B));
-  flash_kernel<T><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sh);
-  return static_cast<int>(cudaGetLastError());
+  return hd <= 128 ? launch_hd<T, 128>(q, k, v, out, sh, B, stream)
+                   : launch_hd<T, 256>(q, k, v, out, sh, B, stream);
 }
 
 }  // namespace
@@ -280,7 +299,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 extern "C" {
 
 // q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd], out [B,Sq,Hq,hd], all contiguous and
-// of one dtype; hd <= 128 and a multiple of 4, Hq/Hkv <= 64.
+// of one dtype; hd <= 256 and a multiple of 4, Hq/Hkv <= 64.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int64_t B, int64_t Sq, int64_t Skv,
                         int64_t Hq, int64_t Hkv, int64_t hd, int64_t causal,

@@ -8,8 +8,10 @@ one function.  ``_route`` picks one from the dtype and the head dim:
   head dim 64 or 128, on the tensor cores — TMA-fed 16-bit tiles, both
   products on ``wgmma``, one q-head and 128 positions per block;
 * ``"simt"`` (``csrc/flash_attention.cu``): float32, and the other head
-  dims, as float32 FMAs on the CUDA cores — one block per (batch,
-  kv-head, q-tile) with every query head of the group in the block.
+  dims up to 256, as float32 FMAs on the CUDA cores — one block per
+  (batch, kv-head, q-tile) with every query head of the group in the
+  block; two instantiations, for head dims up to 128 and up to 256
+  (recurrentgemma-9b's local attention runs at 256).
 
 Both walk the kv tiles in a loop with an online softmax; see the
 sources' headers.  A CUDA call launches its route's kernel or raises:
@@ -50,13 +52,14 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 def _route(dtype: torch.dtype, hd: int, Hq: int, Hkv: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for 16-bit inputs at a
-    head dim the tensor-core kernel covers, ``"simt"`` otherwise.
-    Raises for what neither kernel takes."""
+    head dim the tensor-core kernel covers (``WGMMA_HEAD_DIMS``),
+    ``"simt"`` for every other head dim up to 256 in any of the three
+    dtypes.  Raises for what neither kernel takes."""
     if dtype not in _ENTRY["simt"][1]:
         raise TypeError(f"flash_attention: dtype {dtype}; expects one of "
                         "float32, bfloat16, float16")
-    if hd > 128 or hd % 4 or Hq % Hkv or Hq // Hkv > 64:
-        raise ValueError(f"flash_attention: head_dim {hd} (<= 128, a "
+    if hd > 256 or hd % 4 or Hq % Hkv or Hq // Hkv > 64:
+        raise ValueError(f"flash_attention: head_dim {hd} (<= 256, a "
                          f"multiple of 4) and {Hq}/{Hkv} heads (a group of "
                          "<= 64) expected")
     if dtype in _ENTRY["wgmma"][1] and hd in WGMMA_HEAD_DIMS:

@@ -1,8 +1,9 @@
 """Unified model API (port of the reference ``models/model_api.py``).
 
 ``build_model(cfg)`` returns an object exposing ``spec() / hidden /
-prefill_fn / decode_fn`` for the ``dense`` and ``ssm`` families; the
-other families raise ``NotImplementedError`` (ROADMAP A11).  The
+prefill_fn / decode_fn`` for the ``dense``, ``ssm`` and ``hybrid``
+families; the other families (``moe``: A11.1; ``encdec`` and ``vlm``:
+A11.3) raise ``NotImplementedError`` (ROADMAP A11).  The
 reference's ``input_specs`` (``ShapeDtypeStruct`` stand-ins for its
 dry-run) has no counterpart.
 """
@@ -12,14 +13,17 @@ from __future__ import annotations
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import DecoderLM, cache_spec
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
+# the ROADMAP item each family still waits for
+WAITS_FOR = {"moe": "A11.1", "encdec": "A11.3", "vlm": "A11.3"}
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP A11): the port builds {', '.join(FAMILIES)}")
+            f"(ROADMAP {WAITS_FOR.get(cfg.family, 'A11')}): the port builds "
+            f"{', '.join(FAMILIES)}")
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> DecoderLM:

@@ -27,7 +27,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class LeafSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"          # normal | zeros | ones | ssm_a | dt_bias
+    init: str = "normal"  # normal | zeros | ones | rglru_a | ssm_a | dt_bias
     scale: float = 1.0
     dtype: str = "float32"
 
@@ -101,6 +101,10 @@ def _init_leaf(spec: LeafSpec, gen: torch.Generator, dev) -> torch.Tensor:
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return x.mul_(spec.scale).to(dt)
+    if spec.init == "rglru_a":
+        # RG-LRU Lambda init: a = sigmoid(Lambda) uniform in [0.9, 0.999]
+        u = _uniform(spec, gen, dev, 0.9, 0.999)
+        return torch.log(u / (1.0 - u)).to(dt)
     if spec.init == "ssm_a":
         # mamba2 A init: -uniform[1, 16] stored as log
         return torch.log(_uniform(spec, gen, dev, 1.0, 16.0)).to(dt)
@@ -108,8 +112,7 @@ def _init_leaf(spec: LeafSpec, gen: torch.Generator, dev) -> torch.Tensor:
         # mamba dt bias: softplus^-1 of uniform[1e-3, 1e-1]
         return torch.log(torch.expm1(
             _uniform(spec, gen, dev, 1e-3, 1e-1))).to(dt)
-    raise ValueError(f"unknown init {spec.init!r} (rglru_a comes with the "
-                     "recurrent block, ROADMAP A11)")
+    raise ValueError(f"unknown init {spec.init!r}")
 
 
 def init_params(spec_tree, seed: int = 0, device="cuda"):

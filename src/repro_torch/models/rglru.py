@@ -1,0 +1,135 @@
+"""RG-LRU recurrent block (recurrentgemma / Griffin-style).
+
+Port of the reference ``models/rglru.py``.  The recurrent block: dual
+linear branches (gate + recurrent), a short causal depthwise conv, and
+the Real-Gated LRU::
+
+    r_t = sigmoid(W_a u_t + b_a)          recurrence gate
+    i_t = sigmoid(W_i u_t + b_i)          input gate
+    a_t = exp(-c * softplus(Lambda) * r_t)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+    out = W_o (gelu(gate_branch) * h)
+
+The sequence form runs the linear recurrence as a log-depth scan
+(``_linear_scan``: Hillis-Steele, ceil(log2 S) elementwise passes), where
+the reference runs ``jax.lax.associative_scan`` in XLA; no Pallas kernel
+is involved in either.  Decode is the single-step recurrence with an
+O(1) state.  The recurrence runs in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense, dense_spec
+from repro_torch.models.params import LeafSpec, zeros
+
+RGLRU_C = 8.0
+
+
+def rglru_spec(cfg) -> dict:
+    d = cfg.d_model
+    dr = d  # lru width = d_model for the assigned config
+    w = cfg.rglru_conv_width
+    return {
+        "in_x": dense_spec(d, dr, ("embed", "mlp")),
+        "in_gate": dense_spec(d, dr, ("embed", "mlp")),
+        "conv_w": zeros((w, dr), (None, "mlp")),
+        "conv_b": zeros((dr,), ("mlp",)),
+        "w_a": dense_spec(dr, dr, ("mlp", "mlp")),
+        "w_i": dense_spec(dr, dr, ("mlp", "mlp")),
+        "lam": LeafSpec((dr,), ("mlp",), "rglru_a"),
+        "out": dense_spec(dr, d, ("mlp", "embed")),
+    }
+
+
+def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """u [B,S,dr], w [W,dr]: y_t = sum_j w_j * u_{t-W+1+j} + b.  With
+    float32 taps the result is float32, as jax promotes it."""
+    W, S = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, W - 1, 0))
+    y = torch.zeros_like(u)
+    for j in range(W):
+        y = y + pad[:, j: j + S, :] * w[j]
+    return y + b
+
+
+def _gates(p: dict, u: torch.Tensor):
+    """a_t (decay) and gated input for the LRU, in float32.
+
+    ``F.softplus`` returns x itself above its threshold of 20, where jax
+    computes ``logaddexp(x, 0)``; the two differ by less than float32's
+    rounding there (e^-20 ~ 2e-9 relative), and the init draws Lambda in
+    [2.2, 6.9] (``models/params.py``), far below the threshold."""
+    uf = u.float()
+    r = torch.sigmoid(dense(p["w_a"], uf))
+    i = torch.sigmoid(dense(p["w_i"], uf))
+    log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+    return a, gated
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor,
+                 h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1} = ``h0`` or 0).
+
+    Hillis-Steele: after the pass at offset ``off`` each position holds
+    the composition of the (up to) 2*off steps ending at it, so
+    ceil(log2 S) passes of elementwise products finish the scan (12 at
+    S = 4096) — no loop over positions.  Each pass rewrites only the
+    positions from ``off`` on, in place in one copy of ``a`` and ``b``;
+    its right-hand side is formed before the write."""
+    a, b = a.clone(), b.clone()
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b[:, off:] = torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])
+        if 2 * off < S:  # the last pass needs no composed decay
+            a[:, off:] = a[:, off:] * a[:, :-off]
+        off *= 2
+    return b
+
+
+def apply_rglru(p: dict, x: torch.Tensor, cfg,
+                h0: torch.Tensor | None = None,
+                conv0: torch.Tensor | None = None,
+                return_state: bool = False):
+    """Sequence form. x [B,S,d] -> y [B,S,d] (+ (h [B,dr] float32, conv
+    state) with ``return_state``).  ``conv0`` [B,W-1,dr] is the conv
+    history a continued prefill prepends.  The conv state is the last
+    W-1 rows of ``dense(in_x, x)`` — of this call's x alone, as the
+    reference takes it."""
+    W = cfg.rglru_conv_width
+    gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
+    u_in = dense(p["in_x"], x)
+    if conv0 is not None:  # prefill continuation: prepend conv history
+        ext = torch.cat([conv0, u_in], dim=1)
+        u = _causal_depthwise_conv(ext, p["conv_w"], p["conv_b"])[:, W - 1:]
+    else:
+        u = _causal_depthwise_conv(u_in, p["conv_w"], p["conv_b"])
+    a, b = _gates(p, u)
+    h = _linear_scan(a, b, h0)
+    y = dense(p["out"], (gate.float() * h).to(x.dtype))
+    if return_state:
+        return y, (h[:, -1, :], u_in[:, -(W - 1):, :])
+    return y
+
+
+def rglru_decode_step(p: dict, x: torch.Tensor, cfg, state):
+    """One-token step. x [B,1,d]; state = (h [B,dr] float32, conv
+    [B,W-1,dr]) -> (y [B,1,d], (h', conv')), a fresh state."""
+    h_prev, conv_prev = state
+    gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
+    u_new = dense(p["in_x"], x)                      # [B,1,dr]
+    window = torch.cat([conv_prev, u_new], dim=1)     # [B,W,dr]
+    u = torch.einsum("bwd,wd->bd", window, p["conv_w"].to(x.dtype))
+    u = (u + p["conv_b"].to(x.dtype))[:, None, :]
+    a, b = _gates(p, u)
+    h = a[:, 0] * h_prev + b[:, 0]
+    y = dense(p["out"], (gate[:, 0].float() * h).to(x.dtype))
+    return y[:, None, :], (h, window[:, 1:, :])

@@ -1,25 +1,28 @@
-"""Decoder-only LM for the dense and SSM families: the serving path.
+"""Decoder-only LM for the dense, SSM and hybrid families: the serving
+path.
 
 Port of the reference ``models/transformer.py``: token embedding, a loop
-over the stacked blocks (the reference's ``lax.scan``), final norm, and
-last-position logits.  Two entry points serve a model:
+over the stacked repeating block groups (the reference's ``lax.scan``)
+and then the tail blocks, final norm, and last-position logits.  Two
+entry points serve a model:
 
   ``prefill_fn`` — forward over a prompt; returns last-position logits and
                    a decode cache sized ``max_len``
   ``decode_fn``  — one-token serve step against the cache
 
-Block kinds ``ATTN`` and ``SSM`` are ported; ``MOE``, ``RECURRENT`` and
-``LOCAL_ATTN`` raise ``NotImplementedError`` (ROADMAP A11), as does the
-training entry point ``loss_fn``.  Without the hybrid and enc-dec
-families there are no repeating block groups, tail blocks or sinusoidal
-positions.  The param and cache trees keep the reference's layout
-(stacked ``blocks``/``layers`` with a leading layer dim), so carrying
-weights across is a plain map.
+Block kinds ``ATTN``, ``SSM``, ``RECURRENT`` (RG-LRU) and ``LOCAL_ATTN``
+(sliding-window attention with a ring cache) are ported; ``MOE`` raises
+``NotImplementedError`` (ROADMAP A11.1), as does the training entry
+point ``loss_fn`` (A11.4).  Without the enc-dec family there are no
+sinusoidal positions.  The param and cache trees keep the reference's
+layout (stacked ``blocks``/``layers`` with a leading group dim, a
+``tail`` list), so carrying weights across is a plain map.
 
-In place: ``decode_fn`` writes each layer's new K/V row and SSM state
-into the stacked cache it is given (the reference's ``.at[].set`` makes
-new arrays) and returns that cache with ``lens`` advanced.  No remat:
-serving keeps no activations for a backward pass.
+In place: ``decode_fn`` writes each layer's new K/V row (and ring
+position) into the cache it is given (the reference's ``.at[].set``
+makes new arrays), copies each fresh SSM and RG-LRU state into it, and
+returns that cache with ``lens`` advanced.  No remat: serving keeps no
+activations for a backward pass.
 """
 
 from __future__ import annotations
@@ -39,14 +42,18 @@ from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_leaves,
                                        tree_map)
+from repro_torch.models.rglru import (apply_rglru, rglru_decode_step,
+                                      rglru_spec)
 
-PORTED = (BlockKind.ATTN, BlockKind.SSM)
+PORTED = (BlockKind.ATTN, BlockKind.SSM, BlockKind.RECURRENT,
+          BlockKind.LOCAL_ATTN)
 
 
 def _unported(kind) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {BlockKind(kind).value!r} is not ported yet "
-        "(ROADMAP A11): the port serves the dense and ssm families")
+        "(ROADMAP A11.1): the port serves the dense, ssm and hybrid "
+        "families")
 
 
 # ---------------------------------------------------------------------------
@@ -59,34 +66,43 @@ def _norm_spec(cfg):
 
 
 def block_spec(cfg: ArchConfig, kind: BlockKind) -> dict:
-    if kind == BlockKind.ATTN:
+    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
         return {"ln1": _norm_spec(cfg), "attn": attention_spec(cfg),
                 "ln2": _norm_spec(cfg), "mlp": mlp_spec(cfg)}
     if kind == BlockKind.SSM:
         return {"ln": _norm_spec(cfg), "ssm": mamba2_spec(cfg)}
+    if kind == BlockKind.RECURRENT:
+        return {"ln1": _norm_spec(cfg), "rglru": rglru_spec(cfg),
+                "ln2": _norm_spec(cfg), "mlp": mlp_spec(cfg)}
     raise _unported(kind)
 
 
-def _block_kind(cfg: ArchConfig) -> BlockKind:
-    """The one block kind of every layer.  The ported families are
-    uniform, so the reference's repeating groups are one block (``b0``)
-    and there is no tail; any unported kind raises."""
-    kinds = set(cfg.block_kinds())
-    for k in kinds:
+def _layer_groups(cfg: ArchConfig) -> tuple[list[BlockKind], int,
+                                            list[BlockKind]]:
+    """(group_pattern, n_groups, tail_kinds).  Uniform archs: the group is
+    one block and there is no tail.  Any unported kind raises."""
+    kinds = cfg.block_kinds()
+    for k in set(kinds):
         if k not in PORTED:
             raise _unported(k)
-    (kind,) = kinds
-    return kind
+    if cfg.pattern:
+        g = [BlockKind(p) for p in cfg.pattern]
+        n = len(kinds) // len(g)
+        return g, n, kinds[n * len(g):]
+    return [kinds[0]], len(kinds), []
 
 
 def model_spec(cfg: ArchConfig) -> dict:
+    group, n_groups, tail = _layer_groups(cfg)
+    gspec = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(group)}
     spec: dict[str, Any] = {
         "embed": normal((cfg.padded_vocab(), cfg.d_model), ("vocab", "embed"),
                         scale=0.02),
-        "blocks": stacked(cfg.n_layers,
-                          {"b0": block_spec(cfg, _block_kind(cfg))}),
+        "blocks": stacked(n_groups, gspec),
         "final_norm": _norm_spec(cfg),
     }
+    if tail:
+        spec["tail"] = [block_spec(cfg, k) for k in tail]
     if not cfg.tie_embeddings:
         spec["head"] = normal((cfg.d_model, cfg.padded_vocab()),
                               ("embed", "vocab"))
@@ -109,8 +125,9 @@ def apply_block(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
                 positions, collect_cache: bool = False, max_len: int = 0):
     """-> (h', cache_entry) — cache entry only when collect_cache."""
     cache = None
-    if kind == BlockKind.ATTN:
-        h, (k, v) = _attn_part(p, h, cfg, positions, 0)
+    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
+        window = cfg.window if kind == BlockKind.LOCAL_ATTN else 0
+        h, (k, v) = _attn_part(p, h, cfg, positions, window)
         x2 = apply_norm(p["ln2"], h, cfg.norm)
         h = h + apply_mlp(p["mlp"], x2, cfg)
         if collect_cache:
@@ -122,15 +139,46 @@ def apply_block(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
         else:
             y = apply_ssd(p["ssm"], x, cfg)
         h = h + y
+    elif kind == BlockKind.RECURRENT:
+        x = apply_norm(p["ln1"], h, cfg.norm)
+        if collect_cache:
+            y, (hstate, conv) = apply_rglru(p["rglru"], x, cfg,
+                                            return_state=True)
+            cache = {"h": hstate, "conv": conv}
+        else:
+            y = apply_rglru(p["rglru"], x, cfg)
+        h = h + y
+        x2 = apply_norm(p["ln2"], h, cfg.norm)
+        h = h + apply_mlp(p["mlp"], x2, cfg)
     else:
         raise _unported(kind)
     return h, cache
 
 
 def _attn_cache_from_prefill(k, v, kind, cfg, max_len):
-    """Build the decode cache entry from prefill K/V (global attention:
-    the ring cache of ``LOCAL_ATTN`` comes with A11)."""
-    S = k.shape[1]
+    """Build the decode cache entry from prefill K/V.
+
+    ``LOCAL_ATTN`` keeps a ring of ``W = cfg.window`` slots: the entry
+    for absolute position p lives at slot p % W, beside ``pos`` (-1 for
+    an empty slot).  A prompt of S >= W leaves its last W positions, a
+    rotation of them; a shorter one puts position p at slot p and leaves
+    slots S.. empty (zeros, pos -1) — what the reference's scatter of a
+    left-padded window leaves, written without its colliding indices."""
+    B, S = k.shape[:2]
+    if kind == BlockKind.LOCAL_ATTN:
+        W = cfg.window
+        kr = k.new_zeros((B, W, *k.shape[2:]))
+        vr = v.new_zeros((B, W, *v.shape[2:]))
+        pos = torch.full((W,), -1, dtype=torch.int32, device=k.device)
+        if S >= W:
+            pw = torch.arange(S - W, S, device=k.device)
+            slots = pw % W
+            kr[:, slots], vr[:, slots] = k[:, S - W:], v[:, S - W:]
+            pos[slots] = pw.to(torch.int32)
+        else:
+            kr[:, :S], vr[:, :S] = k, v
+            pos[:S] = torch.arange(S, dtype=torch.int32, device=k.device)
+        return {"k": kr, "v": vr, "pos": pos.expand(B, W).clone()}
     if S < max_len:
         k = F.pad(k, (0, 0, 0, 0, 0, max_len - S))
         v = F.pad(v, (0, 0, 0, 0, 0, max_len - S))
@@ -145,19 +193,28 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
                        cfg: ArchConfig, cache: dict, lens: torch.Tensor):
     """h [B,1,d]; lens [B] = tokens already in cache. -> (h', cache').
 
-    Attention writes the new K/V row into ``cache``'s tensors in place;
-    the SSM step returns a fresh state."""
-    if kind == BlockKind.ATTN:
+    Attention writes the new K/V row (for ``LOCAL_ATTN`` into ring slot
+    ``lens % W``, with its position) into ``cache``'s tensors in place;
+    the SSM and RG-LRU steps return a fresh state."""
+    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
         x = apply_norm(p["ln1"], h, cfg.norm)
         q, k, v = project_qkv(p["attn"], x, cfg, lens[:, None])
         B = h.shape[0]
         rows = torch.arange(B, device=h.device)
-        at = lens.long()
         kc, vc = cache["k"], cache["v"]
+        if kind == BlockKind.LOCAL_ATTN:
+            W = cfg.window
+            at = (lens % W).long()
+            pc = cache["pos"]
+            pc[rows, at] = lens.to(pc.dtype)
+            valid = ((pc >= 0) & (pc >= (lens - W + 1)[:, None])
+                     & (pc <= lens[:, None]))
+        else:
+            at = lens.long()
+            S = kc.shape[1]
+            valid = torch.arange(S, device=h.device)[None, :] <= at[:, None]
         kc[rows, at] = k[:, 0].to(kc.dtype)
         vc[rows, at] = v[:, 0].to(vc.dtype)
-        S = kc.shape[1]
-        valid = torch.arange(S, device=h.device)[None, :] <= at[:, None]
         a = decode_attention(q[:, 0], kc, vc, valid, h.dtype)
         h = h + dense(p["attn"]["o"], a.reshape(B, -1))[:, None, :]
         x2 = apply_norm(p["ln2"], h, cfg.norm)
@@ -166,6 +223,14 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
         x = apply_norm(p["ln"], h, cfg.norm)
         y, cache = ssd_decode_step(p["ssm"], x, cfg, cache)
         h = h + y
+    elif kind == BlockKind.RECURRENT:
+        x = apply_norm(p["ln1"], h, cfg.norm)
+        y, (hstate, conv) = rglru_decode_step(p["rglru"], x, cfg,
+                                              (cache["h"], cache["conv"]))
+        cache = {"h": hstate, "conv": conv}
+        h = h + y
+        x2 = apply_norm(p["ln2"], h, cfg.norm)
+        h = h + apply_mlp(p["mlp"], x2, cfg)
     else:
         raise _unported(kind)
     return h, cache
@@ -190,13 +255,32 @@ def block_cache_spec(cfg: ArchConfig, kind: BlockKind, B: int, max_len: int):
                                 "zeros", dtype="float32"),
                 "conv": LeafSpec((B, 3, ch), ("batch", None, None), "zeros",
                                  dtype=dt)}
+    if kind == BlockKind.LOCAL_ATTN:
+        sh = (B, cfg.window, cfg.n_kv_heads, cfg.head_dim)
+        ax = ("batch", None, None, None)
+        return {"k": LeafSpec(sh, ax, "zeros", dtype=dt),
+                "v": LeafSpec(sh, ax, "zeros", dtype=dt),
+                "pos": LeafSpec((B, cfg.window), ("batch", None), "zeros",
+                                dtype="int32")}
+    if kind == BlockKind.RECURRENT:
+        dr = cfg.d_model
+        W = cfg.rglru_conv_width
+        return {"h": LeafSpec((B, dr), ("batch", "mlp"), "zeros",
+                              dtype="float32"),
+                "conv": LeafSpec((B, W - 1, dr), ("batch", None, "mlp"),
+                                 "zeros", dtype=dt)}
     raise _unported(kind)
 
 
 def cache_spec(cfg: ArchConfig, B: int, max_len: int) -> dict:
-    gspec = {"b0": block_cache_spec(cfg, _block_kind(cfg), B, max_len)}
-    return {"layers": stacked(cfg.n_layers, gspec),
-            "lens": LeafSpec((B,), ("batch",), "zeros", dtype="int32")}
+    group, n_groups, tail = _layer_groups(cfg)
+    gspec = {f"b{i}": block_cache_spec(cfg, k, B, max_len)
+             for i, k in enumerate(group)}
+    out = {"layers": stacked(n_groups, gspec),
+           "lens": LeafSpec((B,), ("batch",), "zeros", dtype="int32")}
+    if tail:
+        out["tail"] = [block_cache_spec(cfg, k, B, max_len) for k in tail]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -216,18 +300,30 @@ def _embed_tokens(params, tokens, cfg):
 
 def trunk(params: dict, h: torch.Tensor, cfg: ArchConfig, positions,
           collect_cache: bool = False, max_len: int = 0):
-    """Run the block stack. -> (h, cache|None); the collected cache is
-    stacked per layer, as the reference's scan stacks it."""
-    kind = _block_kind(cfg)
+    """Run the block groups, then the tail. -> (h, cache|None); the
+    groups' collected cache is stacked per group, as the reference's scan
+    stacks it, and the tail's is a list."""
+    group, n_groups, tail = _layer_groups(cfg)
     caches = []
-    for li in range(cfg.n_layers):
-        h, c = apply_block(_layer(params["blocks"], li)["b0"], h, kind, cfg,
-                           positions, collect_cache, max_len)
-        caches.append({"b0": c})
+    for gi in range(n_groups):
+        gp = _layer(params["blocks"], gi)
+        gc = {}
+        for i, kind in enumerate(group):
+            h, gc[f"b{i}"] = apply_block(gp[f"b{i}"], h, kind, cfg,
+                                         positions, collect_cache, max_len)
+        caches.append(gc)
+    tail_caches = []
+    for i, kind in enumerate(tail):
+        h, c = apply_block(params["tail"][i], h, kind, cfg, positions,
+                           collect_cache, max_len)
+        tail_caches.append(c)
     if not collect_cache:
         return h, None
-    return h, {"layers": tree_map(lambda *xs: torch.stack(xs), caches[0],
-                                  *caches[1:])}
+    cache = {"layers": tree_map(lambda *xs: torch.stack(xs), caches[0],
+                                *caches[1:])}
+    if tail:
+        cache["tail"] = tail_caches
+    return h, cache
 
 
 def _write_back(dst, src):
@@ -251,7 +347,7 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
         self.cfg = cfg
         self.device = check_device(device)
-        _block_kind(cfg)  # refuses unported block kinds early
+        _layer_groups(cfg)  # refuses unported block kinds early
 
     # -- params ------------------------------------------------------------
     def spec(self) -> dict:
@@ -280,7 +376,7 @@ class DecoderLM:
 
     def loss_fn(self, params, batch):
         raise NotImplementedError("training (loss_fn, chunked_ce) is not "
-                                  "ported yet (ROADMAP A11)")
+                                  "ported yet (ROADMAP A11.4)")
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
@@ -298,13 +394,21 @@ class DecoderLM:
         """tok [B] int -> (logits [B,V], cache'); updates ``cache`` in
         place and returns it with ``lens`` advanced."""
         cfg = self.cfg
-        kind = _block_kind(cfg)
+        group, n_groups, tail = _layer_groups(cfg)
         lens = cache["lens"]
         h = _embed_tokens(params, tok[:, None], cfg)
-        for li in range(cfg.n_layers):
-            gc = _layer(cache["layers"], li)["b0"]
-            h, c = apply_block_decode(_layer(params["blocks"], li)["b0"], h,
-                                      kind, cfg, gc, lens)
+        for gi in range(n_groups):
+            gp = _layer(params["blocks"], gi)
+            gcache = _layer(cache["layers"], gi)
+            for i, kind in enumerate(group):
+                gc = gcache[f"b{i}"]
+                h, c = apply_block_decode(gp[f"b{i}"], h, kind, cfg, gc,
+                                          lens)
+                _write_back(gc, c)
+        for i, kind in enumerate(tail):
+            gc = cache["tail"][i]
+            h, c = apply_block_decode(params["tail"][i], h, kind, cfg, gc,
+                                      lens)
             _write_back(gc, c)
         cache["lens"] = lens + 1
         h = apply_norm(params["final_norm"], h, cfg.norm)

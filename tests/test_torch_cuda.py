@@ -594,6 +594,13 @@ def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
     (1, 1, 1, 8, 1, 128), (1, 1, 300, 4, 4, 64), (1, 63, 63, 4, 1, 64),
     (2, 64, 100, 8, 8, 128), (1, 65, 65, 8, 1, 64), (1, 130, 40, 8, 2, 128),
     (1, 2049, 2049, 8, 1, 128),
+    # the CUDA-core kernel's second instantiation (128 < hd <= 256):
+    # recurrentgemma-9b's 16 query heads over one kv head (4 positions a
+    # block), ragged lengths both ways, a single query, hd 192 and 132;
+    # at 600 and 130 positions the window skips whole kv tiles
+    (1, 77, 300, 16, 1, 256), (2, 600, 600, 16, 1, 256),
+    (1, 1, 50, 16, 1, 256), (2, 130, 130, 8, 2, 192),
+    (1, 300, 77, 4, 4, 192), (1, 65, 65, 2, 1, 132),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -604,7 +611,8 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
     """Ragged lengths, Sq != Skv both ways, groups of 1 to 12 heads;
     float32 within 1e-5 (sums reassociated), bf16 and fp16 within an
     ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64 or 128
-    take the tensor-core route, the rest the CUDA-core one."""
+    take the tensor-core route, the rest (head dims up to 256 included)
+    the CUDA-core one."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         _route, flash_attention, flash_attention_plain)
     q, k, v = flash_inputs(cuda, dtype, "cflash", B, Sq, Skv, Hq, Hkv, hd)
@@ -693,9 +701,10 @@ def test_cuda_lm_wrappers_reject_bad_input(cuda):
     q = torch.zeros(1, 4, 2, 16, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q.half(), q.half())
-    with pytest.raises(ValueError):  # head dim over 128
-        z = torch.zeros(1, 4, 2, 256, device=cuda)
-        flash_attention(z, z, z)
+    for hd in (258, 260, 512):  # past 256, or not a multiple of 4
+        with pytest.raises(ValueError):
+            z = torch.zeros(1, 4, 2, hd, device=cuda)
+            flash_attention(z, z, z)
     with pytest.raises(ValueError):
         flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2),
                         q)
@@ -708,12 +717,15 @@ def test_cuda_lm_wrappers_reject_bad_input(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
 def test_cuda_model_equals_cpu(cuda, arch, dtype):
     """A smoke model's prefill (a 40-token prompt: the attention kernel's
-    branch, whole SSD chunks plus a pad) and two decode steps on the
-    card, against the same weights on the CPU: float32 within 1e-4 of
-    the logits' scale, bfloat16 within 3e-2 * max(1, scale)."""
+    branch, whole SSD chunks plus a pad, a full 32-slot ring for the
+    hybrid's local attention) and two decode steps on the card, against
+    the same weights on the CPU: float32 within 1e-4 of the logits'
+    scale, bfloat16 within 3e-2 * max(1, scale).  One prefill forward
+    launches its kernel once per attention (or SSD) layer."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -722,11 +734,16 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
     p_cpu = init_params(cpu.spec(), 0, device="cpu")
-    if cfg.family == "ssm":  # zero taps at init: every block would give 0
-        ssm = p_cpu["blocks"]["b0"]["ssm"]
-        r = rng("ctaps")
-        for k in ("conv_w", "conv_b"):
-            ssm[k] = T((r.randn(*ssm[k].shape) * 0.5).astype(np.float32))
+    r = rng("ctaps")
+    # zero taps at init: every SSM block would give 0, every RG-LRU
+    # block's conv its bias alone
+    for blk in (*p_cpu["blocks"].values(), *p_cpu.get("tail", [])):
+        for name in ("ssm", "rglru"):
+            if name not in blk:
+                continue
+            for k in ("conv_w", "conv_b"):
+                blk[name][k] = T((r.randn(*blk[name][k].shape) * 0.5)
+                                 .astype(np.float32))
     p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
     toks = T(rng("cmodel", arch).randint(0, cfg.vocab, (2, 42)).astype(
         np.int32))
@@ -741,8 +758,12 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
             steps.append(logits)
         outs.append([x.float().cpu() for x in steps])
     torch.cuda.synchronize()
-    name = "flash_attention" if cfg.family == "dense" else "ssd_intra"
-    assert kernels.LAUNCHES[name] == cfg.n_layers  # one prefill forward
+    from repro_torch.models.config import BlockKind
+    kinds = cfg.block_kinds()
+    name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
+    n = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.SSM)
+            for k in kinds)
+    assert kernels.LAUNCHES[name] == n  # one prefill forward
     for got, want in zip(*outs):
         scale = float(want.abs().max())
         bound = 1e-4 * scale if dtype == "float32" else 3e-2 * max(1.0,

@@ -4,7 +4,8 @@ route's rounding costs (CPU).
 ``flash_attention`` launches one of two CUDA kernels for a CUDA tensor:
 ``"wgmma"`` (``csrc/flash_attention_tc.cu``, bfloat16/float16 at head dim
 64 or 128) or ``"simt"`` (``csrc/flash_attention.cu``, everything else
-it takes).  ``_route`` is that choice as a pure function; it is checked
+it takes: any of the three dtypes at head dims up to 256, multiples of
+4).  ``_route`` is that choice as a pure function; it is checked
 here over dtype x head dim x group.  A CPU tensor runs the plain version
 and launches nothing.
 
@@ -52,8 +53,26 @@ def test_route_by_dtype_head_dim_and_group(dtype, hd, G):
 @pytest.mark.parametrize("hd", [132, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
 def test_route_rejects_head_dims_past_128(dtype, hd):
-    with pytest.raises(ValueError):
+    """Head dims past 128 were refused until the CUDA-core kernel took
+    them (its second instantiation, up to 256): they now route to
+    ``"simt"`` in every dtype, with groups up to 16 over one kv head
+    (recurrentgemma-9b's 16/1 at 256)."""
+    assert _route(dtype, hd, 8, 2) == "simt"
+    assert _route(dtype, hd, 16, 1) == "simt"
+
+
+@pytest.mark.parametrize("hd", [258, 260, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
+def test_route_rejects_head_dims_past_256(dtype, hd):
+    """Past 256, or not a multiple of 4 (258), neither kernel takes it."""
+    with pytest.raises(ValueError, match="<= 256"):
         _route(dtype, hd, 8, 2)
+
+
+@pytest.mark.parametrize("hd", [130, 254])
+def test_route_rejects_head_dims_not_a_multiple_of_4(hd):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _route(torch.float32, hd, 8, 2)
 
 
 def test_route_rejects_other_dtypes_and_groups():
@@ -65,7 +84,7 @@ def test_route_rejects_other_dtypes_and_groups():
         _route(torch.bfloat16, 64, 65, 1)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
 def test_cpu_tensors_run_the_plain_version(dtype, hd):
     q, k, v = inputs(("cpu", hd), dtype, 2, 70, 90, 8, 2, hd)

@@ -4,9 +4,11 @@
 ``flash_attention_plain`` is held against the reference
 ``flash_attention(..., interpret=True)`` over the reference's own sweep
 (``tests/test_kernels.py``: causal, windowed, non-causal; float32 at
-1e-5 and bfloat16 at 2e-2 absolute), and ``fused_attention`` against
-``chunked_attention`` where the Pallas kernel cannot go: lengths that no
-block divides and ``Sq != Skv``.  ``ssd_intra_plain`` is held against
+1e-5 and bfloat16 at 2e-2 absolute), also at recurrentgemma-9b's head
+dim 256 with 16 query heads over one kv head, windowed and not, and
+``fused_attention`` against ``chunked_attention`` where the Pallas
+kernel cannot go: lengths that no block divides and ``Sq != Skv`` (at
+head dim 256 too).  ``ssd_intra_plain`` is held against
 ``ssd_intra(..., interpret=True)`` and ``ssd_chunked`` against the
 reference's ``ssd_chunked(force_pallas=True, interpret=True)``, at 1e-4
 (the reference's SSD tolerance: sums over Q and N reassociated).  Inputs
@@ -127,6 +129,36 @@ def test_fused_attention_is_chunked_attention(Sq, Skv, causal, window,
     want = ref_chunked(jq, jk, jv, causal=causal, window=window, q_chunk=16,
                        kv_chunk=16, impl=impl)
     close(fused_attention(q, k, v, causal=causal, window=window), want, tol)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(dtype, window):
+    """recurrentgemma-9b's attention shape at a short length: head dim
+    256, a group of 16 query heads over one kv head, causal, with and
+    without a window (48 keys, so whole kv blocks fall out of it)."""
+    (jq, jk, jv), (q, k, v), tol = qkv(("hd256", dtype, window), 1, 128,
+                                       128, 16, 1, 256, dtype)
+    want = ref_flash(jq, jk, jv, causal=True, window=window, bq=32, bk=32,
+                     interpret=True)
+    before = dict(kernels.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert kernels.LAUNCHES == before  # a CPU tensor launches nothing
+    close(got, want, tol)
+
+
+@pytest.mark.parametrize("Sq,Skv,window", [(37, 90, 0), (37, 90, 25),
+                                           (1, 70, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_head_dim_256_is_chunked_attention(Sq, Skv, window,
+                                                           dtype):
+    """Head dim 256 with Sq != Skv and ragged lengths (a decode-like
+    single query too), against the reference model's chunked branch."""
+    (jq, jk, jv), (q, k, v), tol = qkv(("fused256", Sq, Skv, window, dtype),
+                                       2, Sq, Skv, 16, 1, 256, dtype)
+    want = ref_chunked(jq, jk, jv, causal=True, window=window, q_chunk=16,
+                       kv_chunk=16)
+    close(fused_attention(q, k, v, causal=True, window=window), want, tol)
 
 
 # -- ssd -------------------------------------------------------------------------

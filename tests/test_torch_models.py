@@ -4,14 +4,22 @@ Inputs are made with numpy from a seed; the reference's params come from
 ``repro.models.init_params`` and are carried across with
 ``params_from_reference``, so both packages compute from the same
 weights.  Each layer the serving path runs is held to the reference's at
-1e-5 in float32; every ``dense`` and ``ssm`` smoke config's ``hidden``,
-``prefill_fn`` and ``decode_fn`` to 1e-4 of the output's scale in
-float32, and to the reference's own decode-vs-forward bound
-(``3e-2 * max(1, scale)``, ``tests/test_models.py``) in bfloat16.  On
-the CPU the attention kernel's and the SSD kernel's plain versions run:
-the smoke configs' 40-token prompts take ``attention()``'s chunked
-branch and pad ``apply_ssd`` to whole chunks.  This file imports nothing
-of ``repro.core`` or ``repro.kernels`` (they turn on jax's x64 mode).
+1e-5 in float32; every ``dense``, ``ssm`` and ``hybrid`` smoke config's
+``hidden``, ``prefill_fn`` and three ``decode_fn`` steps to 1e-4 of the
+output's scale in float32.  In bfloat16 the dense and ssm configs are
+held to the reference in bfloat16 at its own decode-vs-forward bound
+(``3e-2 * max(1, scale)``, ``tests/test_models.py``), the hybrid to the
+reference in float32 at ``HYBRID_BF16_TOL`` (see there).
+On the CPU the attention kernel's and the SSD kernel's plain versions
+run: the smoke configs' 40-token prompts take ``attention()``'s chunked
+branch and pad ``apply_ssd`` to whole chunks.  The hybrid's local
+attention keeps a ring cache of ``window`` = 32 slots: a 40-token prompt
+leaves a full ring whose live slots every decode step overwrites, a
+30-token prompt leaves two empty slots that the third step passes, and
+70- and 100-token prompts wrap the ring before the first step.  Run as
+a script, the file prints the bf16 reading behind ``HYBRID_BF16_TOL``.
+This file imports nothing of ``repro.core`` or ``repro.kernels`` (they
+turn on jax's x64 mode).
 """
 
 import dataclasses
@@ -28,6 +36,7 @@ from repro.configs import ARCH_NAMES, get_config as ref_config
 from repro.models import build_model as ref_build, init_params as ref_init
 from repro.models import layers as RL
 from repro.models import mamba2 as RM
+from repro.models import transformer as RT
 from repro.models.params import LeafSpec as RefLeafSpec
 from repro_torch.configs import get_config
 from repro_torch.models import (BlockKind, build_model, init_params,
@@ -36,10 +45,11 @@ from repro_torch.models import layers as TL
 from repro_torch.models import mamba2 as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_reference
+from repro_torch.models.model_api import WAITS_FOR
 from repro_torch.models.params import is_leaf_spec, tree_leaves
 
 SERVED = ["yi-6b", "qwen2-7b", "starcoder2-15b", "mistral-large-123b",
-          "mamba2-1.3b"]
+          "mamba2-1.3b", "recurrentgemma-9b"]
 OTHER = [a for a in ARCH_NAMES if a not in SERVED]
 TOL = 1e-5
 
@@ -144,8 +154,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
         params_from_reference({}, cfg)
 
 
-@pytest.mark.parametrize("kind", [BlockKind.MOE, BlockKind.RECURRENT,
-                                  BlockKind.LOCAL_ATTN])
+@pytest.mark.parametrize("kind", [BlockKind.MOE])
 def test_unported_block_kinds_raise(kind):
     cfg = get_config("yi-6b", smoke=True)
     with pytest.raises(NotImplementedError, match="A11"):
@@ -156,10 +165,13 @@ def test_unported_block_kinds_raise(kind):
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_unported_families_raise(arch):
+    """Each names the ROADMAP item it waits for (A11.1 MoE, A11.3 enc-dec
+    and VLM)."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="A11"):
+    item = WAITS_FOR[cfg.family].replace(".", r"\.")
+    with pytest.raises(NotImplementedError, match=item):
         build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match=item):
         model_cache_spec(cfg, 1, 8)
 
 
@@ -321,54 +333,255 @@ def test_ssd_decode_step():
         close(got[1][key], want[1][key])
 
 
+# -- hybrid blocks ------------------------------------------------------------
+
+
+def hybrid_block(salt, kind):
+    """(cfg, reference block params, the same as tensors) of one
+    recurrentgemma smoke block of ``kind``, conv taps seeded."""
+    cfg = f32(get_config("recurrentgemma-9b", smoke=True))
+    rp, tp = ref_params(RT.block_spec, cfg, kind)
+    if kind == BlockKind.RECURRENT:
+        r = rs("hybrid-taps", salt)
+        for k in ("conv_w", "conv_b"):
+            val = randn(r, *np.asarray(rp["rglru"][k]).shape, scale=0.5)
+            rp["rglru"][k], tp["rglru"][k] = J(val), T(val)
+    return cfg, rp, tp
+
+
+@pytest.mark.parametrize("S", [5, 31, 32, 45, 70],
+                         ids=["short", "W-1", "W", "over", "wrapped"])
+def test_local_attn_prefill_cache(S):
+    """The ring cache a prompt of S tokens leaves (window W = 32): S < W
+    (position p at slot p, the rest empty with pos -1) and S >= W (the
+    last W positions at slot p % W)."""
+    cfg = f32(get_config("recurrentgemma-9b", smoke=True))
+    r = rs("ring", S)
+    k, v = (randn(r, 2, S, cfg.n_kv_heads, cfg.head_dim) for _ in "kv")
+    got = TT._attn_cache_from_prefill(T(k), T(v), BlockKind.LOCAL_ATTN,
+                                      cfg, S + 8)
+    want = RT._attn_cache_from_prefill(J(k), J(v), BlockKind.LOCAL_ATTN,
+                                       cfg, S + 8)
+    assert sorted(got) == sorted(want) == ["k", "pos", "v"]
+    for key in got:
+        assert got[key].dtype == T(np.asarray(want[key])).dtype
+        assert torch.equal(got[key], T(np.asarray(want[key])))
+
+
+@pytest.mark.parametrize("S", [20, 45], ids=["below-window", "past-window"])
+@pytest.mark.parametrize("kind", [BlockKind.RECURRENT, BlockKind.LOCAL_ATTN])
+def test_hybrid_apply_block(kind, S):
+    """One block's prefill form and the cache entry it collects."""
+    cfg, rp, tp = hybrid_block(("block", S), kind)
+    x = randn(rs("hybrid-x", kind, S), 2, S, cfg.d_model)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    h, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
+    h_ref, _, c_ref = RT.apply_block(rp, J(x), kind, cfg, J(pos),
+                                     RL.NO_HINTS, True, S + 4)
+    close(h, h_ref)
+    for g, w in zip(tree_leaves(c), jax.tree.leaves(c_ref)):
+        close(g, w)
+
+
+@pytest.mark.parametrize("kind", [BlockKind.RECURRENT, BlockKind.LOCAL_ATTN])
+def test_hybrid_apply_block_decode(kind):
+    """Three decode steps from a 30-token prefill (the third passes the
+    32-slot ring's end); the port writes the ring in place and returns a
+    fresh RG-LRU state."""
+    cfg, rp, tp = hybrid_block("decode", kind)
+    r = rs("hybrid-decode", kind)
+    S = 30
+    x = randn(r, 2, S, cfg.d_model)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    _, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
+    _, _, c_ref = RT.apply_block(rp, J(x), kind, cfg, J(pos), RL.NO_HINTS,
+                                 True, S + 4)
+    for i in range(3):
+        lens = np.full((2,), S + i, np.int32)
+        xt = randn(r, 2, 1, cfg.d_model)
+        h, c = TT.apply_block_decode(tp, T(xt), kind, cfg, c, T(lens))
+        h_ref, c_ref = RT.apply_block_decode(rp, J(xt), kind, cfg, c_ref,
+                                             J(lens), RL.NO_HINTS)
+        close(h, h_ref)
+        for g, w in zip(tree_leaves(c), jax.tree.leaves(c_ref)):
+            close(g, w)
+
+
 # -- whole model -------------------------------------------------------------
+
+
+def seed_conv_taps(rp, r):
+    """The same random conv taps and bias for both models in every SSM
+    and RG-LRU block, in the groups and the tail: both are zeros at
+    init, which makes every SSM block output 0 and every RG-LRU block's
+    conv output its bias alone."""
+    blocks = [*rp["blocks"].values(), *rp.get("tail", [])]
+    for blk in blocks:
+        for name in ("ssm", "rglru"):
+            if name in blk:
+                for k in ("conv_w", "conv_b"):
+                    blk[name][k] = J(randn(r, *blk[name][k].shape,
+                                           scale=0.5))
+
+
+def leaves(tree, name=""):
+    """(key, leaf) pairs of a cache tree, torch or jax, in
+    ``jax.tree.leaves``' order (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v, name)]
+    return [(name, tree)]
+
+
+def served_outputs(hidden, prefill, decode, toks, S, steps):
+    """[(name, array)] of ``hidden`` over S + steps tokens, then the
+    logits and every cache leaf (groups and tail, ``lens`` included)
+    after ``prefill`` over S tokens and after each of ``steps``
+    ``decode`` steps, each copied as it is made (the port writes its
+    cache in place).  Floating leaves come as float32."""
+    def snap(a):
+        a = np.array(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                     else a, copy=True)
+        return a if a.dtype.kind in "iu" else a.astype(np.float32)
+
+    out = [("hidden", snap(hidden(toks)))]
+    logits, cache = prefill(toks[:, :S], S + 8)
+    for i in range(S, S + steps + 1):
+        out += [("logits", snap(logits))]
+        out += [(k, snap(v)) for k, v in leaves(cache)]
+        if i < S + steps:
+            logits, cache = decode(toks[:, i], cache)
+    return out
+
+
+def port_outputs(model, params, toks, S, steps):
+    return served_outputs(lambda t: model.hidden(params, T(t))[0],
+                          lambda t, n: model.prefill_fn(params, T(t), n),
+                          lambda t, c: model.decode_fn(params, T(t), c),
+                          toks, S, steps)
+
+
+def ref_outputs(ref, params, toks, S, steps):
+    return served_outputs(lambda t: ref.hidden(params, J(t))[0],
+                          lambda t, n: ref.prefill_fn(params, J(t), n),
+                          lambda t, c: ref.decode_fn(params, J(t), c),
+                          toks, S, steps)
+
+
+def served_setup(arch, dtype, S, steps, seed=0):
+    """(smoke cfg in ``dtype``, reference params with seeded conv taps,
+    the port's model and params on the same weights, B = 2 prompts of
+    S + steps tokens)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    salt = (arch,) if seed == 0 else (arch, seed)
+    rp = ref_init(ref_build(cfg).spec(), jax.random.PRNGKey(seed))
+    seed_conv_taps(rp, rs("conv", *salt))
+    model = build_model(cfg, device="cpu")
+    tp = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu")
+    toks = rs("model", *salt).randint(0, cfg.vocab, (2, S + steps)).astype(
+        np.int32)
+    return cfg, rp, model, tp, toks
+
+
+def max_errs(got, want):
+    """Each output's max abs error over max(1, its own scale) (float32:
+    over its scale), key by key; integer leaves must be equal."""
+    assert [k for k, _ in got] == [k for k, _ in want]
+    errs = []
+    for (name, g), (_, w) in zip(got, want):
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        if w.dtype.kind in "iu":
+            assert np.array_equal(g, w), name
+            continue
+        errs.append((name, float(np.max(np.abs(g - w))),
+                     float(np.max(np.abs(w)))))
+    return errs
+
+
+# bf16 hybrid: the port against the reference in float32 on the same
+# weights, at this fraction of max(1, scale) of every output and cache
+# leaf.  Set from the reading of ``bf16_readings`` (run this file as a
+# script): over 5 weight seeds x prompts of 30, 40, 70 and 100 tokens x
+# 3 decode steps, the reference's own bf16 lies up to 0.056 of that
+# scale from its float32, the port's bf16 up to 0.072, the first
+# layer's RG-LRU state bit-equal between the two bf16 runs.
+HYBRID_BF16_TOL = 8e-2
+
+
+def model_matches_reference(arch, dtype, S, steps):
+    """``hidden`` over S + steps tokens, ``prefill_fn`` over S and
+    ``steps`` ``decode_fn`` steps, port against reference, same weights;
+    the logits and the whole cache (groups and tail) after the prefill
+    and each step, every leaf at the bound of its own scale and integer
+    leaves (``lens``, ring ``pos``) equal.  float32: 1e-4 of the scale.
+    bfloat16: dense and ssm against the reference in bfloat16 at
+    3e-2 * max(1, scale); the hybrid against the reference in float32
+    at ``HYBRID_BF16_TOL`` * max(1, scale), because its RG-LRU state
+    carries the stream's bf16 rounding along the whole prompt, so two
+    bf16 computations (the reference's and the port's, which round
+    products in different orders) lie as far from each other as each
+    lies from float32."""
+    cfg, rp, model, tp, toks = served_setup(arch, dtype, S, steps)
+    hybrid_bf16 = dtype == "bfloat16" and cfg.family == "hybrid"
+    ref = ref_build(f32(cfg) if hybrid_bf16 else cfg)
+    tol = (1e-4 if dtype == "float32"
+           else HYBRID_BF16_TOL if hybrid_bf16 else 3e-2)
+    got = port_outputs(model, tp, toks, S, steps)
+    want = ref_outputs(ref, rp, toks, S, steps)
+    for name, err, scale in max_errs(got, want):
+        bound = tol * (scale if dtype == "float32" else max(1.0, scale))
+        assert err <= bound, (arch, dtype, name, err, bound)
+
+
+def bf16_readings(arch, S, steps, seed):
+    """{output or leaf name: (port bf16, reference bf16)}: the largest
+    error of each against the reference in float32 on the same weights,
+    over max(1, its scale)."""
+    cfg, rp, model, tp, toks = served_setup(arch, "bfloat16", S, steps,
+                                            seed)
+    want = ref_outputs(ref_build(f32(cfg)), rp, toks, S, steps)
+    port = max_errs(port_outputs(model, tp, toks, S, steps), want)
+    own = max_errs(ref_outputs(ref_build(cfg), rp, toks, S, steps), want)
+    out = {}
+    for (name, e_p, sc), (_, e_r, _) in zip(port, own):
+        p, r = out.get(name, (0.0, 0.0))
+        out[name] = (max(p, e_p / max(1.0, sc)), max(r, e_r / max(1.0, sc)))
+    return out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", SERVED)
 def test_model_matches_reference(arch, dtype):
-    """``hidden`` over S+1 tokens, ``prefill_fn`` over S and one
-    ``decode_fn`` step, port against reference, same weights."""
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
-    ref = ref_build(cfg)
-    rp = ref_init(ref.spec(), jax.random.PRNGKey(0))
-    if cfg.family == "ssm":
-        # the conv taps and bias are zeros at init, which makes every SSM
-        # block output 0: give both models the same random taps
-        ssm = rp["blocks"]["b0"]["ssm"]
-        r = rs("conv", arch)
-        for k in ("conv_w", "conv_b"):
-            ssm[k] = J(randn(r, *ssm[k].shape, scale=0.5))
-    model = build_model(cfg, device="cpu")
-    tp = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu")
-    B, S, max_len = 2, 40, 48
-    toks = rs("model", arch).randint(0, cfg.vocab, (B, S + 1)).astype(
-        np.int32)
+    """A 40-token prompt and three decode steps (past the hybrid smoke
+    config's 32-slot ring)."""
+    model_matches_reference(arch, dtype, 40, 3)
 
-    def bound(want):
-        scale = float(np.max(np.abs(np.asarray(want, np.float32))))
-        return (1e-4 * scale if dtype == "float32"
-                else 3e-2 * max(1.0, scale))
 
-    def check(got, want):
-        want = np.asarray(want, np.float32)
-        err = float(np.max(np.abs(got.float().numpy() - want)))
-        assert err <= bound(want), (arch, dtype, err, bound(want))
+@pytest.mark.parametrize("S", [30, 70, 100],
+                         ids=["shorter", "past", "far-past"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_prompt_around_the_window(dtype, S):
+    """Prompts around the 32-slot window: at 30 tokens the ring cache's
+    S < W branch (two empty slots, the full-attention branch of
+    ``attention()``) and three decode steps that fill the ring and
+    overwrite its first slot; at 70 and 100 tokens a ring that wrapped
+    before the first step, and an RG-LRU state over the whole prompt."""
+    model_matches_reference("recurrentgemma-9b", dtype, S, 3)
 
-    h, _ = model.hidden(tp, T(toks))
-    h_ref, _, _ = ref.hidden(rp, J(toks))
-    check(h, h_ref)
-    logits, cache = model.prefill_fn(tp, T(toks[:, :S]), max_len)
-    logits_ref, cache_ref = ref.prefill_fn(rp, J(toks[:, :S]), max_len)
-    check(logits, logits_ref)
-    for g, w in zip(tree_leaves(cache["layers"]),
-                    jax.tree.leaves(cache_ref["layers"])):
-        assert tuple(g.shape) == w.shape
-        check(g, w)
-    step, cache = model.decode_fn(tp, T(toks[:, S]), cache)
-    step_ref, cache_ref = ref.decode_fn(rp, J(toks[:, S]), cache_ref)
-    check(step, step_ref)
-    assert cache["lens"].tolist() == [S + 1] * B
-    for g, w in zip(tree_leaves(cache["layers"]),
-                    jax.tree.leaves(cache_ref["layers"])):
-        check(g, w)
+
+if __name__ == "__main__":
+    # the reading behind HYBRID_BF16_TOL: for each weight seed and prompt
+    # length, the largest error of the port's bf16 and of the reference's
+    # own bf16 against the reference in float32, by output or leaf name
+    worst = {"port": 0.0, "reference": 0.0}
+    for seed in range(5):
+        for S in (30, 40, 70, 100):
+            r = bf16_readings("recurrentgemma-9b", S, 3, seed)
+            print(f"seed {seed} S {S}: " + ", ".join(
+                f"{k} {p:.4f}/{q:.4f}" for k, (p, q) in r.items()),
+                flush=True)
+            worst["port"] = max(worst["port"], *(p for p, _ in r.values()))
+            worst["reference"] = max(worst["reference"],
+                                     *(q for _, q in r.values()))
+    print("worst (port bf16, reference bf16) against float32:", worst)

@@ -3,6 +3,7 @@
 
 Usage: ``python3 tools/sort_probe.py [--reps R] [--seed S] [--old PATH]
 [--sweep LO,HI] [--variant NAME:CONST=VALUE,... ...]``
+or ``python3 tools/sort_probe.py --ptxas SOURCE [--ptxas SOURCE ...]``
 
 Each ``--variant`` is ``src/repro_torch/kernels/csrc/bitonic_sort.cu``
 with some of the constants at its head replaced (``NAME:`` alone is the
@@ -21,7 +22,10 @@ beside ``torch.sort`` ms, and at the table shapes the device kernels of
 one call, checked against ``launch_plan``, and their split into first
 tile, cross-tile and later tile launches.  Prints one JSON line per build
 and writes them all, with each build's register and spill report, to
-``chiprun_out/sort_probe.json``.  Imports nothing of JAX.
+``chiprun_out/sort_probe.json``.  With ``--ptxas`` the probe only builds
+each named file of ``src/repro_torch/kernels/csrc/`` the same way and
+prints one JSON line per entry function (mangled name, registers, spill
+bytes stored); that needs ``nvcc`` but no card.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -124,7 +128,21 @@ def main() -> int:
                     help="LO,HI: both sorts at every 2^LO..2^HI")
     ap.add_argument("--variant", action="append", default=None,
                     help="NAME:CONST=VALUE,... (constants of the .cu)")
+    ap.add_argument("--ptxas", action="append", default=None,
+                    metavar="SOURCE",
+                    help="only report registers and spills of csrc/SOURCE")
     args = ap.parse_args()
+    if args.ptxas:
+        from repro_torch.kernels import _build
+        built = build({Path(n).stem: (_build.CSRC / n).read_text()
+                       for n in args.ptxas}, ROOT / "build" / "ptxas_report",
+                      stem="ptxas")
+        for name, (_, table) in built.items():
+            for kernel, regs, spill in table:
+                print(json.dumps({"source": f"{name}.cu", "kernel": kernel,
+                                  "registers": regs,
+                                  "spill_store_bytes": spill}), flush=True)
+        return 0
 
     import numpy as np
     import torch

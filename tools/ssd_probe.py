@@ -113,9 +113,11 @@ def prefill_model(torch, seed: int):
     model = build_model(cfg)
     params = init_params(model.spec(), seed)
     chip_smoke.seed_conv_taps(torch, params, seed)
+    seq = next(row[3] for row in chip_smoke.LM_MODELS
+               if row[0] == "mamba2-1.3b")
     prompts = torch.tensor(np.random.RandomState(seed).randint(
-        0, cfg.vocab, (chip_smoke.LM_BATCH, chip_smoke.LM_SEQ)).astype(
-            np.int32), device="cuda")
+        0, cfg.vocab, (chip_smoke.LM_BATCH, seq)).astype(np.int32),
+        device="cuda")
     return model, params, prompts
 
 
