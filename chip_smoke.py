@@ -69,8 +69,8 @@ Phases, each fatal on failure:
    the prompt plus that token (``3e-2 * max(1, scale)``, as the
    reference's decode test; ``1e-3 * max(1, scale)`` with the same
    weights in float32), and the two forwards must have launched
-   ``flash_attention`` (yi, every launch on the tensor-core ``wgmma``
-   route; recurrentgemma, every launch on the CUDA-core route) or
+   ``flash_attention`` (yi at head dim 128 and recurrentgemma at 256,
+   every launch on the tensor-core ``wgmma`` route) or
    ``ssd_intra`` (mamba2) once per attention or SSD layer each; then a
    profiled prefill (device busy share, attention's device time, and
    for recurrentgemma one layer's RG-LRU scan timed apart with its share
@@ -96,15 +96,17 @@ Phases, each fatal on failure:
    mask bit-checked at both ends of every size bucket the fact path
    launched them at (``path_shape_checks``); ``ssd_intra``'s gram pass
    timed apart (``gram_ms``); attention also at recurrentgemma-9b's
-   prefill (head dim 256, 16/1 heads, window 2048, bf16, the CUDA-core
-   route; the same in float32 and a ragged head-dim-192 case), beside
-   SDPA with the band as an explicit mask (its backend named);
+   prefill (head dim 256, 16/1 heads, window 2048, bf16 and fp16 on the
+   tensor-core route; the same in float32 and a ragged head-dim-192
+   case on the CUDA-core one), beside SDPA with the band as an explicit
+   mask (its backend named);
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
    inputs (``simt_ms``) and counts yi's launches by route; its
    ``flash_attention@hd256`` row (the same wrapper at head dim 256)
-   counts recurrentgemma's launches and carries ``sdpa_ms``;
+   counts recurrentgemma's launches by route and carries ``simt_ms``
+   and ``sdpa_ms``;
    the merge ranks' row times its two launches apart (``left_ms``,
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
@@ -808,8 +810,9 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
 
     # flash_attention at head dim 256: recurrentgemma-9b's prefill, B=2,
     # S=4096, Hq=16 over Hkv=1, causal, window 2048, bf16, on the
-    # CUDA-core route (2e-2 as the bf16 cases); then the same in float32
-    # (1e-5) and a ragged Sq != Skv case at head dim 192, both dtypes
+    # tensor-core route (2e-2 as the bf16 cases); fp16 at that shape
+    # (4e-3) on the same route; the same in float32 (1e-5) and a ragged
+    # Sq != Skv case at head dim 192, both dtypes, on the CUDA-core one
     del q, k, v, qt, kt_, vt
     B, S, Hq, Hkv, hd, W = 2, 4096, 16, 1, 256, 2048
     q = normal(B, S, Hq, hd, dtype=torch.bfloat16)
@@ -821,9 +824,10 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         "flash_attention (recurrentgemma prefill, hd 256)")
     if (kernels.LAUNCHES["flash_attention"] != before["flash_attention"] + 1
             or kernels.LAUNCHES["flash_attention_wgmma"]
-            != before["flash_attention_wgmma"]):
-        fail("flash_attention (hd 256) did not take the simt route")
+            != before["flash_attention_wgmma"] + 1):
+        fail("flash_attention (hd 256) did not take the wgmma route")
     side = [attention_case(*c) for c in (
+        (B, S, S, Hq, Hkv, hd, W, torch.float16, 4e-3, "wgmma"),
         (B, S, S, Hq, Hkv, hd, W, torch.float32, 1e-5, "simt"),
         (2, 77, 300, 16, 1, 192, 100, torch.bfloat16, 2e-2, "simt"),
         (2, 77, 300, 16, 1, 192, 100, torch.float32, 1e-5, "simt"))]
@@ -848,11 +852,16 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
     band = W * (W + 1) // 2 + (S - W) * W
     out["flash_attention@hd256"] = {
         "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
-        "window": W, "route": "simt", "max_abs_err": err, "tolerance": 2e-2,
+        "window": W, "route": "wgmma", "max_abs_err": err, "tolerance": 2e-2,
         "side_cases": side, "band_pairs": band,
         "kernel_ms": time_ms(
             torch, lambda: flash_attention(q, k, v, causal=True, window=W),
             reps),
+        # the CUDA-core kernel on the same bf16 inputs: the time the
+        # tensor-core route replaces at hd 256
+        "simt_ms": time_ms(
+            torch, lambda: launch_route("simt", q, k, v, causal=True,
+                                        window=W), reps),
         "plain_ms": time_ms(
             torch, lambda: flash_attention_plain(q, k, v, causal=True,
                                                  window=W), reps),
@@ -1931,8 +1940,8 @@ def sharded_phase(torch, oracle: dict, seed: int, sizes: dict,
 
 # (config, its kernel's row in the kernels line, the launch counts each of
 # its forwards raises once per attention or SSD layer, prompt tokens) of
-# the LM phase.  yi's attention must take the tensor-core route every
-# time; recurrentgemma's (head dim 256) the CUDA-core one.  2048 tokens
+# the LM phase.  yi's attention (head dim 128) and recurrentgemma's (head
+# dim 256) must take the tensor-core route every time.  2048 tokens
 # put yi's attention on the kernel's branch (> 1024) and give mamba2 8
 # chunks of 256; recurrentgemma's 4096 pass its 2048-key window, so the
 # kernel's window mask and kv-tile skip run in prefill, the prefill cache
@@ -1941,8 +1950,8 @@ LM_MODELS = [
     ("yi-6b", "flash_attention", ("flash_attention", "flash_attention_wgmma"),
      2048),
     ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048),
-    ("recurrentgemma-9b", "flash_attention@hd256", ("flash_attention",),
-     4096)]
+    ("recurrentgemma-9b", "flash_attention@hd256",
+     ("flash_attention", "flash_attention_wgmma"), 4096)]
 LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
 # the block kinds whose forward launches an LM kernel once (RG-LRU blocks
 # launch none: their scan is plain PyTorch, as the reference's is XLA)
@@ -2207,9 +2216,12 @@ KERNELS = [
                  "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     # the same wrapper at head dim 256 (recurrentgemma-9b), where it takes
-    # the CUDA-core kernel's second instantiation
+    # the tensor-core kernel's hd-256 tiles (and times the CUDA-core
+    # kernel's second instantiation on the same inputs)
     {"name": "flash_attention@hd256", "route": "cuda",
-     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+     "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                 "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     {"name": "ssd_intra", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
@@ -2289,8 +2301,9 @@ def main() -> int:
         if k["name"] == "flash_attention":  # launches by route, and the
             extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core time
                      "simt_ms": r["simt_ms"]}
-        elif k["name"] == "flash_attention@hd256":  # launches by route, SDPA
-            extra = {"routes": lm[k["name"]]["routes"],
+        elif k["name"] == "flash_attention@hd256":  # launches by route,
+            extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core, SDPA
+                     "simt_ms": r["simt_ms"],
                      "sdpa_ms": r["library_ms"],
                      "sdpa_backend": r["sdpa_backend"],
                      "sdpa_max_abs_err": r["sdpa_max_abs_err"],

@@ -43,12 +43,15 @@
 // Head dims.  The kernel is instantiated twice on its head-dim ceiling
 // HD_MAX, which sizes the accumulator (4 x HD_MAX/16 floats a thread):
 // HD_MAX = 128 for hd <= 128 (two blocks an SM, at most 128 registers a
-// thread) and HD_MAX = 256 for 128 < hd <= 256 (recurrentgemma's local
-// attention: 145 KB of shared memory at hd = 256, so one block an SM, and
-// up to 255 registers a thread for the 64-float accumulator).  `launch`
-// picks the instantiation from hd.  With G query heads per kv head a
-// block holds BQ = 64/G positions: at G = 16 each kv tile serves only 4
-// positions, which is correct but leaves the products short.
+// thread) and HD_MAX = 256 for 128 < hd <= 256 (145 KB of shared memory
+// at hd = 256, so one block an SM, and up to 255 registers a thread for
+// the 64-float accumulator).  `launch` picks the instantiation from hd.
+// 16-bit inputs at hd 64, 128 and 256 take csrc/flash_attention_tc.cu
+// instead (recurrentgemma's local attention at 256 among them); this
+// kernel takes float32 at every hd and 16-bit inputs at the others.
+// With G query heads per kv head a block holds BQ = 64/G positions: at
+// G = 16 each kv tile serves only 4 positions, which is correct but
+// leaves the products short.
 //
 // Plain C interface for ctypes: launches on the given stream and returns
 // cudaGetLastError().

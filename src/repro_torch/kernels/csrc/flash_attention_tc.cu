@@ -1,5 +1,5 @@
 // GQA flash attention on Hopper's tensor cores (sm_90a): wgmma tiles fed
-// by TMA, for bfloat16 and float16 at head_dim 64 and 128.
+// by TMA, for bfloat16 and float16 at head_dim 64, 128 and 256.
 //
 // Replaces the TPU kernel `flash_attention` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention/flash_attention.py:92 on the 16-bit
@@ -14,47 +14,66 @@
 // Bound on this card: operations.  At yi-6b's prefill (B=2, S=2048, 32/4
 // heads, hd=128, causal) the band is 68.7 GFLOP against 75.5 MB of
 // q/k/v/out: 0.0695 ms at the 989 TFLOP/s bf16 tensor-core peak, three
-// times the 0.0225 ms the bytes take.  So the design keeps the tensor
-// cores fed and takes everything else off their path:
+// times the 0.0225 ms the bytes take.  At recurrentgemma-9b's (B=2,
+// S=4096, 16/1 heads, hd=256, window 2048) the band is 206 GFLOP against
+// 143 MB: 0.208 ms against 0.043.  So the design keeps the tensor cores
+// fed and takes everything else off their path:
 //   * tiles stay 16-bit in shared memory, in wgmma's 128-byte-swizzled
 //     layout, written there by TMA: q, k and v are 4-D tensor maps over
 //     (hd, H, S, B) with their real strides, so a [positions x 64] box is
 //     cut out of [B,S,H,hd] with no index math in the threads (hd = 128 is
-//     two 64-column boxes: a swizzled box spans at most 128 bytes).  Rows
-//     past S come back as zeros, so keys >= Skv are still masked;
-//   * S = Q K^T is `wgmma.m64n128k16` with A = the Q tile and B = the K
+//     two 64-column boxes, hd = 256 four: a swizzled box spans at most 128
+//     bytes).  Rows past S come back as zeros, so keys >= Skv are still
+//     masked;
+//   * S = Q K^T is `wgmma.m64n{BN}k16` with A = the Q tile and B = the K
 //     tile, both K-major from shared memory, hd/16 k-steps;
 //   * the online softmax runs on the accumulator fragment in registers:
 //     row max by quad shuffles, exp2 with log2(e)/sqrt(hd) folded into one
 //     scale, the row sum kept per thread until the end; scores never touch
 //     shared memory;
-//   * O += P V is `wgmma.m64n{hd}k16` with A = P in registers (the S
-//     accumulator's fragment is the A fragment: pairs of it packed to
-//     16 bits) and B = the V tile, which is MN-major for this product
-//     (trans-b); O is rescaled by alpha first;
-//   * one producer warp keeps a two-stage K/V ring in flight (full and
-//     empty mbarriers) while two consumer warpgroups compute, so one
+//   * O += P V is `wgmma.m64nNk16` (N = hd, or two N = 128 halves at
+//     hd = 256) with A = P in registers (the S accumulator's fragment is
+//     the A fragment: pairs of it packed to 16 bits) and B = the V tile,
+//     which is MN-major for this product (trans-b); O is rescaled by
+//     alpha first;
+//   * a producer keeps a two-stage K/V ring in flight (full and empty
+//     mbarriers) while two consumer warpgroups compute, so one
 //     warpgroup's softmax overlaps the other's wgmma;
 //   * kv tiles wholly outside the causal band or the window are never
 //     loaded; a warpgroup skips a loaded tile none of its rows can see; the
 //     element masks run only on tiles that cross the diagonal, the window
-//     edge or the Skv tail;
-//   * the output goes through padded shared memory (no bank conflicts) to
-//     16-byte coalesced stores.
+//     edge or the Skv tail.
 // GQA mapping: one q-head per block, 128 query positions (two warpgroups
 // of 64 rows), K/V of its kv-head reused through L2: the G blocks of a
 // group run side by side (the head is the fastest grid axis) and all of
-// yi's K/V is 8 MB against a 50 MB L2.  Putting the G heads of a group in
-// one 64-row tile instead would leave 64/G positions per tile, so each
-// block would walk a whole band for a sliver of queries.  The q-tile axis
-// is the slowest and runs from the last tile down, so the longest bands
-// start first.
-// Shared memory at hd = 128: Q 32 KB, K and V 2 x 32 KB each, the output
-// staging 34 KB: 195 KB, one block (288 threads) per SM.
+// yi's K/V is 8 MB against a 50 MB L2 (recurrentgemma's 4 MB a batch).
+// Putting the G heads of a group in one 64-row tile instead would leave
+// 64/G positions per tile, so each block would walk a whole band for a
+// sliver of queries.  The q-tile axis is the slowest and runs from the
+// last tile down, so the longest bands start first.
+//
+// Tiles by head dim (`Layout<HD>`; one block of 128 query rows per SM):
+//   * hd 64 and 128: 128-key tiles, one producer warp (288 threads), the
+//     output through padded shared memory (no bank conflicts) to 16-byte
+//     coalesced stores.  At hd 128: Q 32 KB, K and V 2 x 32 KB each, the
+//     staging 34 KB: 195 KB.
+//   * hd 256: that layout would need Q 64 KB, K and V rings of 2 x 64 KB
+//     each and 66 KB of staging, far over the 227 KB a block may have,
+//     and an O accumulator of 128 floats a consumer thread.  So kv tiles
+//     are 64 keys (S is `m64n64k16`, 32 floats a thread, over 16
+//     k-steps): Q 64 KB plus K and V rings of 2 x 32 KB each is 192 KB.
+//     The output is staged in the warpgroup's own Q rows once its last
+//     Q K^T has completed, in the same swizzled four-box layout, and goes
+//     out by TMA tensor stores of 64-row boxes, which clip rows past Sq.
+//     Registers: the producer is a whole warpgroup (384 threads) that
+//     gives its registers up with `setmaxnreg` (down to 40), and the
+//     consumers take them (up to 232: 128 x 40 + 256 x 232 = 64,512 of
+//     the SM's 65,536) for O, S and P.
 //
 // Plain C interface for ctypes: launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape, an alignment
-// or a tensor map it refuses.
+// or a tensor map it refuses, or the error of a refused shared-memory
+// request.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,25 +88,39 @@
 namespace {
 
 constexpr int BM = 128;        // query rows per block (two warpgroups)
-constexpr int BN = 128;        // keys per kv tile
 constexpr int STAGES = 2;      // depth of the K/V ring
 constexpr int CONSUMERS = 256;
-constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr int BOX = 64;        // head-dim columns per TMA box (128 bytes)
+constexpr int OUT_ROWS = 64;   // rows of a TMA output box (one warpgroup)
 constexpr float LOG2E = 1.4426950408889634f;
 
+// What the head dim sets (see the header): hd 64 and 128 keep 128-key
+// tiles, one producer warp and padded output staging; hd 256 ("wide")
+// takes 64-key tiles, a producer warpgroup that hands its registers to
+// the consumers, and stages the output in the Q tile for TMA stores.
 template <int HD>
 struct Layout {  // byte offsets from a 1024-aligned base
+  static constexpr bool WIDE = HD > 128;
+  static constexpr int BN = WIDE ? 64 : 128;    // keys per kv tile
+  static constexpr int THREADS = CONSUMERS + (WIDE ? 128 : 32);
+  static constexpr int ON = WIDE ? 64 : HD / 2;  // O floats a wgmma holds
+  static constexpr int OH = HD / 2 / ON;         // O products per k-step
   static constexpr int Q_BYTES = BM * HD * 2;   // HD/64 boxes of BM x 64
   static constexpr int KV_BYTES = BN * HD * 2;  // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int O_LD = HD + 8;           // staging row, in elements
-  static constexpr int BAR_OFF = O_OFF + BM * O_LD * 2;
+  static constexpr int BAR_OFF = O_OFF + (WIDE ? 0 : BM * O_LD * 2);
   // barriers: q, full[STAGES], empty[STAGES]
   static constexpr int ALLOC = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
+// the register split of the wide layout (setmaxnreg; multiples of 8)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536,
+              "the wide layout's registers exceed the SM's");
+static_assert(Layout<256>::ALLOC <= 232448 && Layout<128>::ALLOC <= 232448,
+              "a layout exceeds the 227 KB a block may have");
 
 struct Shape {
   int Sq, Skv, Hq, G, causal, window, offset;
@@ -137,6 +170,39 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "r"(c2), "r"(c3), "r"(bar) : "memory");
 }
 
+// a box from shared memory to global; elements past the tensor's extent
+// are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(src) : "memory");
+}
+
+// returns once every bulk store this thread committed has read its source
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the thread's generic-proxy writes to shared memory become visible to
+// the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -174,6 +240,11 @@ __device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void keep(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) keep(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -196,11 +267,11 @@ __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
       "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
       "%58, %59, %60, %61, %62, %63"
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
-// both K-major; accumulate = 0 overwrites d
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A and B from shared memory, both
+// K-major; accumulate = 0 overwrites d; N = 128 (d[64]) or 64 (d[32])
 template <bool BF16>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
   if constexpr (BF16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -215,9 +286,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         : D64 : "l"(da), "l"(db), "r"(accumulate));
   }
 }
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : D32 : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {" R32
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : D32 : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
 
-// d[64 x HD] += A[64 x 16] B[16 x HD], A from registers (four packed
-// pairs a thread), B from shared memory MN-major (trans-b = 1)
+// d[64 x N] += A[64 x 16] B[16 x N], A from registers (four packed pairs
+// a thread), B from shared memory MN-major (trans-b = 1); N = 128 (d[64])
+// or 64 (d[32])
 template <bool BF16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
@@ -288,12 +377,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 // -- the kernel --------------------------------------------------------------
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Layout<HD>::THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap to, T* __restrict__ out,
                 const Shape sh) {
   using L = Layout<HD>;
+  constexpr int BN = L::BN;
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -326,9 +417,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == CONSUMERS / 32) {
+  if (warp >= CONSUMERS / 32) {
+    // the wide layout's producer warpgroup keeps 40 registers a thread
+    if constexpr (L::WIDE) setmaxnreg_dec<PRODUCER_REGS>();
     // producer: the Q tile once, then the K/V ring
-    if (lane == 0) {
+    if (warp == CONSUMERS / 32 && lane == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
       for (int c = 0; c < HD / BOX; ++c)
         tma_load_4d(base + c * BM * 128, &tq, c * BOX, h, q0, b, bar_q);
@@ -349,6 +442,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
+  if constexpr (L::WIDE) setmaxnreg_inc<CONSUMER_REGS>();
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; this
   // thread holds rows r and r + 8 of them, columns 8 n + 2 (lane % 4) + e
@@ -360,9 +454,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int wp_last = min(row0 + 64, sh.Sq) - 1 + sh.offset;
   const float scale = LOG2E / sqrtf(static_cast<float>(HD));
 
-  float o[HD / 2];
+  // O's columns 8 n .. 8 n + 7 are o[n / NPH][4 (n % NPH) ..]: one
+  // accumulator per N = 128 product at hd 256, one in all below
+  constexpr int NPH = L::ON / 4;
+  float o[L::OH][L::ON];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int a = 0; a < L::OH; ++a)
+#pragma unroll
+    for (int i = 0; i < L::ON; ++i) o[a][i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
 
   const uint32_t q_addr = base + wg * 64 * 128;
@@ -383,7 +482,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t koff = (kk / 4) * BN * 128 + (kk % 4) * 32;
-        wgmma_ss_n128<BF16>(
+        wgmma_ss<BF16>(
             sc,
             sw128_desc(q_addr + (kk / 4) * BM * 128 + (kk % 4) * 32, 16,
                        1024),
@@ -437,12 +536,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       l_lo = l_lo * al_lo + ps_lo;
       l_hi = l_hi * al_hi + ps_hi;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        o[4 * n] *= al_lo;
-        o[4 * n + 1] *= al_lo;
-        o[4 * n + 2] *= al_hi;
-        o[4 * n + 3] *= al_hi;
-      }
+      for (int a = 0; a < L::OH; ++a)
+#pragma unroll
+        for (int n = 0; n < NPH; ++n) {
+          o[a][4 * n] *= al_lo;
+          o[a][4 * n + 1] *= al_lo;
+          o[a][4 * n + 2] *= al_hi;
+          o[a][4 * n + 3] *= al_hi;
+        }
       // P's fragment for k-step kk is the S fragment's columns 16 kk ..
       // 16 kk + 15: registers 8 kk .. 8 kk + 7, packed in pairs
       uint32_t pa[BN / 16][4];
@@ -457,10 +558,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        // keys 16 kk .. 16 kk + 15: rows of the V tile; the two 64-column
-        // boxes of hd = 128 are the leading-dimension step
-        wgmma_rs<BF16>(o, pa[kk],
-                       sw128_desc(v_addr + kk * 16 * 128, BN * 128, 1024));
+#pragma unroll
+        for (int a = 0; a < L::OH; ++a)
+          // keys 16 kk .. 16 kk + 15: rows of the V tile; the 64-column
+          // boxes are the leading-dimension step, and the second N = 128
+          // half of hd = 256 starts two boxes on
+          wgmma_rs<BF16>(o[a], pa[kk],
+                         sw128_desc(v_addr + a * 2 * BN * 128 + kk * 16 * 128,
+                                    BN * 128, 1024));
       wgmma_commit();
       wgmma_wait_all();
       keep(o);
@@ -470,30 +575,57 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  // normalize, stage through shared memory, store 16 bytes a thread
   l_lo = quad_sum(l_lo);
   l_hi = quad_sum(l_hi);
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-  T* stage = reinterpret_cast<T*>(sm + L::O_OFF) + wg * 64 * L::O_LD;
+  if constexpr (L::WIDE) {
+    // normalize into the warpgroup's own Q rows (its last Q K^T has
+    // completed, and the other warpgroup reads only its own), in the
+    // swizzled box layout TMA loaded them in: row rr's 16-byte chunk j of
+    // box c sits at chunk j ^ (rr % 8); then 64-row TMA stores, which
+    // clip rows past Sq
+    uint8_t* stage = sm + wg * 64 * 128;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int col = 8 * n + 2 * (lane % 4);
-    *reinterpret_cast<uint32_t*>(stage + r * L::O_LD + col) =
-        pack2<T>(o[4 * n] * inv_lo, o[4 * n + 1] * inv_lo);
-    *reinterpret_cast<uint32_t*>(stage + (r + 8) * L::O_LD + col) =
-        pack2<T>(o[4 * n + 2] * inv_hi, o[4 * n + 3] * inv_hi);
-  }
-  named_bar_sync(1 + wg, 128);
-  constexpr int CH = HD / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x % 128; c < 64 * CH; c += 128) {
-    const int rr = c / CH, j = c % CH;
-    const int qrow = row0 + rr;
-    if (qrow < sh.Sq)
-      *reinterpret_cast<uint4*>(
-          out + ((static_cast<int64_t>(b) * sh.Sq + qrow) * sh.Hq + h) * HD +
-          j * 8) = *reinterpret_cast<const uint4*>(stage + rr * L::O_LD +
-                                                   j * 8);
+    for (int n = 0; n < HD / 8; ++n) {
+      const int a = n / NPH, e = 4 * (n % NPH);
+      uint8_t* chunk = stage + (n / 8) * BM * 128 + r * 128 +
+                       (((n % 8) ^ (r % 8)) << 4) + 4 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(chunk) =
+          pack2<T>(o[a][e] * inv_lo, o[a][e + 1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(chunk + 8 * 128) =  // row r + 8
+          pack2<T>(o[a][e + 2] * inv_hi, o[a][e + 3] * inv_hi);
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0 && row0 < sh.Sq) {
+      for (int c = 0; c < HD / BOX; ++c)
+        tma_store_4d(&to, base + c * BM * 128 + wg * 64 * 128, c * BOX, h,
+                     row0, b);
+      tma_store_drain();
+    }
+  } else {
+    // stage through padded shared memory, store 16 bytes a thread
+    T* stage = reinterpret_cast<T*>(sm + L::O_OFF) + wg * 64 * L::O_LD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = 8 * n + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(stage + r * L::O_LD + col) =
+          pack2<T>(o[0][4 * n] * inv_lo, o[0][4 * n + 1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(stage + (r + 8) * L::O_LD + col) =
+          pack2<T>(o[0][4 * n + 2] * inv_hi, o[0][4 * n + 3] * inv_hi);
+    }
+    named_bar_sync(1 + wg, 128);
+    constexpr int CH = HD / 8;  // 16-byte chunks a row
+    for (int c = threadIdx.x % 128; c < 64 * CH; c += 128) {
+      const int rr = c / CH, j = c % CH;
+      const int qrow = row0 + rr;
+      if (qrow < sh.Sq)
+        *reinterpret_cast<uint4*>(
+            out + ((static_cast<int64_t>(b) * sh.Sq + qrow) * sh.Hq + h) *
+                      HD + j * 8) =
+            *reinterpret_cast<const uint4*>(stage + rr * L::O_LD + j * 8);
+    }
   }
 }
 
@@ -545,13 +677,15 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
               int64_t B, int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv,
               int64_t causal, int64_t window, int64_t offset,
               cudaStream_t stream) {
+  using L = Layout<HD>;
   const CUtensorMapDataType type =
       std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to{};  // `to` only for the wide layout's stores
   if (!make_map(&tq, q, type, B, Sq, Hq, HD, BM) ||
-      !make_map(&tk, k, type, B, Skv, Hkv, HD, BN) ||
-      !make_map(&tv, v, type, B, Skv, Hkv, HD, BN))
+      !make_map(&tk, k, type, B, Skv, Hkv, HD, L::BN) ||
+      !make_map(&tv, v, type, B, Skv, Hkv, HD, L::BN) ||
+      (L::WIDE && !make_map(&to, out, type, B, Sq, Hq, HD, OUT_ROWS)))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape sh;
   sh.Sq = static_cast<int>(Sq);
@@ -561,13 +695,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
   sh.causal = causal ? 1 : 0;
   sh.window = static_cast<int>(window);
   sh.offset = static_cast<int>(offset);
-  const int bytes = Layout<HD>::ALLOC;
-  cudaFuncSetAttribute(flash_tc_kernel<T, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::ALLOC);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(static_cast<unsigned>(Hq), static_cast<unsigned>(B),
                   static_cast<unsigned>((Sq + BM - 1) / BM));
-  flash_tc_kernel<T, HD><<<grid, THREADS, bytes, stream>>>(
-      tq, tk, tv, static_cast<T*>(out), sh);
+  flash_tc_kernel<T, HD><<<grid, L::THREADS, L::ALLOC, stream>>>(
+      tq, tk, tv, to, static_cast<T*>(out), sh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,6 +724,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
   if (hd == 128)
     return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                              window, offset, st);
+  if (hd == 256)
+    return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+                             window, offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -597,7 +735,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 extern "C" {
 
 // q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd], out [B,Sq,Hq,hd], all contiguous,
-// 16-byte aligned and of one dtype; hd 64 or 128, Skv >= 1.
+// 16-byte aligned and of one dtype; hd 64, 128 or 256, Skv >= 1.
 int flash_attention_tc_bf16(const void* q, const void* k, const void* v,
                             void* out, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t Hq, int64_t Hkv, int64_t hd,

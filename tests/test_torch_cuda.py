@@ -601,6 +601,14 @@ def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
     (1, 77, 300, 16, 1, 256), (2, 600, 600, 16, 1, 256),
     (1, 1, 50, 16, 1, 256), (2, 130, 130, 8, 2, 192),
     (1, 300, 77, 4, 4, 192), (1, 65, 65, 2, 1, 132),
+    # the tensor-core route's hd-256 tiles (128 rows, 64 keys, 64-row
+    # output stores) in 16 bits: Sq and Skv of 1, 63, 64, 65 and 129,
+    # Skv < 64, a 4097-position tail past every tile, groups of 1, 8 and
+    # 16 (the 17-key window skips whole kv tiles past 64 positions)
+    (1, 1, 1, 16, 1, 256), (1, 63, 63, 8, 1, 256), (1, 64, 64, 1, 1, 256),
+    (2, 65, 65, 16, 1, 256), (1, 129, 129, 8, 8, 256),
+    (1, 1, 129, 16, 1, 256), (1, 129, 63, 16, 1, 256),
+    (1, 4097, 4097, 16, 1, 256),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -610,18 +618,18 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
                                            causal, window, dtype):
     """Ragged lengths, Sq != Skv both ways, groups of 1 to 12 heads;
     float32 within 1e-5 (sums reassociated), bf16 and fp16 within an
-    ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64 or 128
-    take the tensor-core route, the rest (head dims up to 256 included)
-    the CUDA-core one."""
+    ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64, 128
+    or 256 take the tensor-core route, the rest (float32, and 16-bit
+    inputs at the other head dims up to 256) the CUDA-core one."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        _route, flash_attention, flash_attention_plain)
+        WGMMA_HEAD_DIMS, _route, flash_attention, flash_attention_plain)
     q, k, v = flash_inputs(cuda, dtype, "cflash", B, Sq, Skv, Hq, Hkv, hd)
     before = dict(kernels.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     wgmma = _route(dtype, hd, Hq, Hkv) == "wgmma"
-    assert wgmma == (dtype != torch.float32 and hd in (64, 128))
+    assert wgmma == (dtype != torch.float32 and hd in WGMMA_HEAD_DIMS)
     assert kernels.LAUNCHES["flash_attention"] == (
         before["flash_attention"] + 1)
     assert kernels.LAUNCHES["flash_attention_wgmma"] == (
@@ -632,13 +640,15 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 128), (16, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
-def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype):
+def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype, Hq, Hkv, hd):
     """The tensor-core route sums in a fixed order (no atomics): two calls
-    on the same inputs give bitwise-equal outputs."""
+    on the same inputs give bitwise-equal outputs, at hd 128 and on the
+    hd-256 tiles."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
-    q, k, v = flash_inputs(cuda, dtype, "cdet", 2, 300, 300, 8, 2, 128)
+    q, k, v = flash_inputs(cuda, dtype, "cdet", 2, 300, 300, Hq, Hkv, hd)
     before = kernels.LAUNCHES["flash_attention_wgmma"]
     a = flash_attention(q, k, v, causal=True, window=100)
     b = flash_attention(q, k, v, causal=True, window=100)

@@ -3,17 +3,18 @@ route's rounding costs (CPU).
 
 ``flash_attention`` launches one of two CUDA kernels for a CUDA tensor:
 ``"wgmma"`` (``csrc/flash_attention_tc.cu``, bfloat16/float16 at head dim
-64 or 128) or ``"simt"`` (``csrc/flash_attention.cu``, everything else
-it takes: any of the three dtypes at head dims up to 256, multiples of
-4).  ``_route`` is that choice as a pure function; it is checked
+64, 128 or 256) or ``"simt"`` (``csrc/flash_attention.cu``, everything
+else it takes: float32 at head dims up to 256 and 16-bit inputs at the
+other head dims up to 256, multiples of 4).  ``_route`` is that choice as a pure function; it is checked
 here over dtype x head dim x group.  A CPU tensor runs the plain version
 and launches nothing.
 
 The tensor-core route rounds each tile's probabilities P to the inputs'
 16-bit type before P V, as any tensor-core flash attention does.  The
-last test writes that rounding into a tile loop of its own (no knob on
-the port) and holds it against ``flash_attention_plain`` at yi-6b's head
-dim and prompt length with a reduced head count, within the tolerances
+last tests write that rounding into a tile loop of their own (no knob on
+the port) and hold it against ``flash_attention_plain`` at yi-6b's head
+dim and prompt length, and at recurrentgemma-9b's head dim and window
+with its 64-key tiles, with reduced head counts, within the tolerances
 the card's tests use (``tests/test_torch_cuda.py::FLASH_TOL``): any
 design that rounds P this way can meet them.  The plain version is held
 against the reference Pallas kernel by ``test_torch_lm_kernels.py``; the
@@ -43,7 +44,7 @@ def inputs(salt, dtype, B, Sq, Skv, Hq, Hkv, hd):
 
 
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
 def test_route_by_dtype_head_dim_and_group(dtype, hd, G):
     want = "wgmma" if dtype in HALF and hd in WGMMA_HEAD_DIMS else "simt"
@@ -52,13 +53,14 @@ def test_route_by_dtype_head_dim_and_group(dtype, hd, G):
 
 @pytest.mark.parametrize("hd", [132, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
-def test_route_rejects_head_dims_past_128(dtype, hd):
-    """Head dims past 128 were refused until the CUDA-core kernel took
-    them (its second instantiation, up to 256): they now route to
-    ``"simt"`` in every dtype, with groups up to 16 over one kv head
-    (recurrentgemma-9b's 16/1 at 256)."""
-    assert _route(dtype, hd, 8, 2) == "simt"
-    assert _route(dtype, hd, 16, 1) == "simt"
+def test_route_takes_head_dims_past_128(dtype, hd):
+    """Past 128 the CUDA-core kernel's second instantiation takes every
+    head dim up to 256; the tensor-core kernel takes 256 in 16 bits
+    (recurrentgemma-9b's 16/1 heads), with groups up to 16 over one kv
+    head.  132 and 192 stay on ``"simt"`` in every dtype."""
+    want = "wgmma" if dtype in HALF and hd == 256 else "simt"
+    assert _route(dtype, hd, 8, 2) == want
+    assert _route(dtype, hd, 16, 1) == want
 
 
 @pytest.mark.parametrize("hd", [258, 260, 384, 512])
@@ -104,8 +106,9 @@ def test_launch_route_never_runs_a_cpu_tensor(route):
 
 
 def p_rounded(q, k, v, *, causal, window, bn=128):
-    """The tensor-core route's arithmetic in PyTorch: 128-key tiles, a
-    float32 online softmax, P rounded to q's dtype before P V."""
+    """The tensor-core route's arithmetic in PyTorch: ``bn``-key tiles
+    (128 at hd 64 and 128, 64 at hd 256), a float32 online softmax, P
+    rounded to q's dtype before P V."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -145,6 +148,21 @@ def test_p_rounding_stays_within_the_card_tolerance(dtype, causal, window):
     q, k, v = inputs(("pround", causal, window), dtype, 1, 2048, 2048, 4, 1,
                      128)
     got = p_rounded(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype], err
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 2048),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", HALF, ids=str)
+def test_p_rounding_at_head_dim_256(dtype, causal, window):
+    """recurrentgemma-9b's head dim and window on the tensor-core route's
+    64-key tiles, past the window (2560 positions), two query heads over
+    one kv head: P rounded to 16 bits stays within FLASH_TOL."""
+    q, k, v = inputs(("pround256", causal, window), dtype, 1, 2560, 2560,
+                     2, 1, 256)
+    got = p_rounded(q, k, v, causal=causal, window=window, bn=64)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL[dtype], err

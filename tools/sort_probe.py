@@ -23,9 +23,10 @@ one call, checked against ``launch_plan``, and their split into first
 tile, cross-tile and later tile launches.  Prints one JSON line per build
 and writes them all, with each build's register and spill report, to
 ``chiprun_out/sort_probe.json``.  With ``--ptxas`` the probe only builds
-each named file of ``src/repro_torch/kernels/csrc/`` the same way and
-prints one JSON line per entry function (mangled name, registers, spill
-bytes stored); that needs ``nvcc`` but no card.  Imports nothing of JAX.
+each named file of ``src/repro_torch/kernels/csrc/`` (by its name or its
+path) the same way and prints one JSON line per entry function (mangled
+name, registers, spill bytes stored); that needs ``nvcc`` but no card.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -130,11 +131,12 @@ def main() -> int:
                     help="NAME:CONST=VALUE,... (constants of the .cu)")
     ap.add_argument("--ptxas", action="append", default=None,
                     metavar="SOURCE",
-                    help="only report registers and spills of csrc/SOURCE")
+                    help="only report registers and spills of csrc/SOURCE "
+                         "(a file name, or its path in the repository)")
     args = ap.parse_args()
     if args.ptxas:
         from repro_torch.kernels import _build
-        built = build({Path(n).stem: (_build.CSRC / n).read_text()
+        built = build({Path(n).stem: (_build.CSRC / Path(n).name).read_text()
                        for n in args.ptxas}, ROOT / "build" / "ptxas_report",
                       stem="ptxas")
         for name, (_, table) in built.items():
