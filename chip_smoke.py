@@ -58,20 +58,28 @@ Phases, each fatal on failure:
    Every run of this phase records its kernels' launches by size and
    its index-mirror merge shapes (``path_sizes``) for the kernel phase;
 4. LM phase: ``yi-6b`` (32 layers, d=4096, GQA 32/4), ``mamba2-1.3b``
-   (48 layers, d=2048, SSD) and ``recurrentgemma-9b`` (38 layers: 12
+   (48 layers, d=2048, SSD), ``recurrentgemma-9b`` (38 layers: 12
    groups of two RG-LRU blocks and a local-attention block, then two
-   RG-LRU blocks; d=4096, 16/1 heads at head dim 256, window 2048) at
-   full width with random weights from ``--seed`` (the SSM and RG-LRU
-   conv taps drawn as upstream's), each served greedily: B = 2 prompts
-   of S random tokens (2048; 4096 for recurrentgemma, past its window)
-   through ``prefill_fn`` (``max_len = S + 16``), then 16 ``decode_fn``
-   steps.  The first decode step's logits must match ``hidden()`` over
-   the prompt plus that token (``3e-2 * max(1, scale)``, as the
-   reference's decode test; ``1e-3 * max(1, scale)`` with the same
-   weights in float32), and the two forwards must have launched
-   ``flash_attention`` (yi at head dim 128 and recurrentgemma at 256,
-   every launch on the tensor-core ``wgmma`` route) or
-   ``ssd_intra`` (mamba2) once per attention or SSD layer each; then a
+   RG-LRU blocks; d=4096, 16/1 heads at head dim 256, window 2048) and
+   ``moonshot-v1-16b-a3b`` (48 MoE layers, d=2048, MHA 16/16 at head dim
+   128, 64 experts of d_ff 1408 with top-6 routing, capacity factor
+   1.25; 28.1 B parameters, held in the 16-bit store: the leaves the
+   forward casts in bf16, 56.1 GB) at full width and depth with random
+   weights from ``--seed`` (the SSM and RG-LRU conv taps drawn as
+   upstream's), each served greedily: B = 2 prompts of S random tokens
+   (2048; 4096 for recurrentgemma, past its window) through
+   ``prefill_fn`` (``max_len = S + 16``), then 16 ``decode_fn`` steps.
+   The first decode step's logits must match ``hidden()`` over the
+   prompt plus that token (``3e-2 * max(1, scale)``, as the reference's
+   decode test; ``1e-3 * max(1, scale)`` with the same weights in
+   float32; for moonshot, where either forward of a pair dropped MoE
+   pairs over capacity, both pairs again at capacity factor E / k,
+   where none can drop, and those are gated), the peak device memory
+   must stay under 80 GB, and the two forwards must have launched
+   ``flash_attention`` (yi and moonshot at head dim 128 and
+   recurrentgemma at 256, every launch on the tensor-core ``wgmma``
+   route) or ``ssd_intra`` (mamba2) once per attention or SSD layer
+   each; moonshot's line adds the pairs each forward dropped.  Then a
    profiled prefill (device busy share, attention's device time, and
    for recurrentgemma one layer's RG-LRU scan timed apart with its share
    of the prefill) and a profiled 4-step decode window;
@@ -95,7 +103,8 @@ Phases, each fatal on failure:
    rows), each checked bit for bit; the sorts, the probe and the unique
    mask bit-checked at both ends of every size bucket the fact path
    launched them at (``path_shape_checks``); ``ssd_intra``'s gram pass
-   timed apart (``gram_ms``); attention also at recurrentgemma-9b's
+   timed apart (``gram_ms``); attention also at moonshot-v1-16b-a3b's
+   prefill (16/16 heads, hd 128, beside SDPA) and at recurrentgemma-9b's
    prefill (head dim 256, 16/1 heads, window 2048, bf16 and fp16 on the
    tensor-core route; the same in float32 and a ragged head-dim-192
    case on the CUDA-core one), beside SDPA with the band as an explicit
@@ -104,6 +113,7 @@ Phases, each fatal on failure:
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
    inputs (``simt_ms``) and counts yi's launches by route; its
+   ``flash_attention@mha`` row (moonshot's shape) counts moonshot's; its
    ``flash_attention@hd256`` row (the same wrapper at head dim 256)
    counts recurrentgemma's launches by route and carries ``simt_ms``
    and ``sdpa_ms``;
@@ -807,6 +817,42 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         # multiply-add, at the bf16 tensor-core peak (the inputs' type)
         "bound": bound_ms(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
                           4 * B * Hq * hd * band, BF16_OPS_PER_S)}
+
+    # flash_attention at moonshot-v1-16b-a3b's prefill: B=2, S=2048, 16
+    # query heads over 16 kv heads (MHA, a group of 1), hd 128, bf16,
+    # causal, on the tensor-core route (2e-2 as the bf16 cases)
+    del q, k, v, qt, kt_, vt
+    B, S, Hq, Hkv, hd = 2, 2048, 16, 16, 128
+    q, k, v = (normal(B, S, Hq, hd, dtype=torch.bfloat16) for _ in range(3))
+    before = kernels.LAUNCHES["flash_attention_wgmma"]
+    err = float_err(torch, flash_attention(q, k, v, causal=True),
+                    flash_attention_plain(q, k, v, causal=True), 2e-2,
+                    "flash_attention (moonshot prefill)")
+    if kernels.LAUNCHES["flash_attention_wgmma"] != before + 1:
+        fail("flash_attention (moonshot prefill) did not take the wgmma "
+             "route")
+    qt, kt_, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
+    backend, backend_kernel = sdpa_backend(torch, sdpa)
+    band = S * (S + 1) // 2
+    out["flash_attention@mha"] = {
+        "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
+        "route": "wgmma", "max_abs_err": err, "tolerance": 2e-2,
+        "kernel_ms": time_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True), reps),
+        "simt_ms": time_ms(
+            torch, lambda: launch_route("simt", q, k, v, causal=True), reps),
+        "plain_ms": time_ms(
+            torch, lambda: flash_attention_plain(q, k, v, causal=True), reps),
+        "library_ms": time_ms(torch, sdpa, reps),
+        "library_call": "F.scaled_dot_product_attention(is_causal=True)",
+        "sdpa_backend": backend, "sdpa_kernel": backend_kernel,
+        # bytes: q, k, v read once, out written once (bf16); operations:
+        # the causal band's two products, at the bf16 tensor-core peak
+        "bound": bound_ms(2 * 4 * B * S * Hq * hd, 4 * B * Hq * hd * band,
+                          BF16_OPS_PER_S)}
 
     # flash_attention at head dim 256: recurrentgemma-9b's prefill, B=2,
     # S=4096, Hq=16 over Hkv=1, causal, window 2048, bf16, on the
@@ -1939,23 +1985,30 @@ def sharded_phase(torch, oracle: dict, seed: int, sizes: dict,
 
 
 # (config, its kernel's row in the kernels line, the launch counts each of
-# its forwards raises once per attention or SSD layer, prompt tokens) of
-# the LM phase.  yi's attention (head dim 128) and recurrentgemma's (head
-# dim 256) must take the tensor-core route every time.  2048 tokens
-# put yi's attention on the kernel's branch (> 1024) and give mamba2 8
-# chunks of 256; recurrentgemma's 4096 pass its 2048-key window, so the
-# kernel's window mask and kv-tile skip run in prefill, the prefill cache
-# takes the full-ring branch and every decode step overwrites a live slot
+# its forwards raises once per attention or SSD layer, prompt tokens,
+# whether its weights take the 16-bit store) of the LM phase.  Every
+# attention at head dim 128 or 256 must take the tensor-core route.
+# 2048 tokens put yi's and moonshot's attention on the kernel's branch
+# (> 1024) and give mamba2 8 chunks of 256; recurrentgemma's 4096 pass
+# its 2048-key window, so the kernel's window mask and kv-tile skip run
+# in prefill, the prefill cache takes the full-ring branch and every
+# decode step overwrites a live slot.  moonshot's 28.1 B parameters are
+# 112.2 GB in the float32 store, past the card; the 16-bit store holds
+# the leaves the forward casts (56.1 GB) and computes the same bits
 LM_MODELS = [
     ("yi-6b", "flash_attention", ("flash_attention", "flash_attention_wgmma"),
-     2048),
-    ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048),
+     2048, False),
+    ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048, False),
     ("recurrentgemma-9b", "flash_attention@hd256",
-     ("flash_attention", "flash_attention_wgmma"), 4096)]
+     ("flash_attention", "flash_attention_wgmma"), 4096, False),
+    ("moonshot-v1-16b-a3b", "flash_attention@mha",
+     ("flash_attention", "flash_attention_wgmma"), 2048, True)]
 LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
 # the block kinds whose forward launches an LM kernel once (RG-LRU blocks
-# launch none: their scan is plain PyTorch, as the reference's is XLA)
-KERNEL_KINDS = ("attn", "local", "ssm")
+# launch none: their scan is plain PyTorch, as the reference's is XLA;
+# a MoE block launches attention, and its dispatch is stock torch ops, as
+# the reference's is XLA)
+KERNEL_KINDS = ("attn", "local", "ssm", "moe")
 # prompts and greedy decode steps
 LM_BATCH, LM_STEPS = 2, 16
 
@@ -1970,14 +2023,17 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
     from repro_torch.configs import get_config
     from repro_torch.models import (build_model, init_params, param_bytes,
                                     param_count)
+    from repro_torch.models import moe
+    from repro_torch.models.params import store_spec
 
     launches = {}
-    for arch, row, own, seq in models:
+    for arch, row, own, seq, sixteen in models:
         cfg = get_config(arch)
+        store = cfg.dtype if sixteen else None
         model = build_model(cfg)
         spec = model.spec()
         t0 = time.perf_counter()
-        params = init_params(spec, seed)
+        params = init_params(spec, seed, store=store)
         seed_conv_taps(torch, params, seed)
         torch.cuda.synchronize()
         print(json.dumps({"lm": arch, "layers": cfg.n_layers,
@@ -1985,18 +2041,26 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
                           "vocab": cfg.vocab, "heads": [cfg.n_heads,
                                                         cfg.n_kv_heads],
                           "head_dim": cfg.head_dim, "window": cfg.window,
+                          "experts": [cfg.n_experts, cfg.top_k],
+                          "capacity_factor": cfg.capacity_factor,
                           "dtype": cfg.dtype,
+                          "store": store or "float32",
                           "params": param_count(spec),
-                          "param_gb": param_bytes(spec) / 1e9,
+                          "param_gb": param_bytes(store_spec(spec, store))
+                          / 1e9,
+                          "param_gb_float32_store": param_bytes(spec) / 1e9,
                           "init_s": time.perf_counter() - t0}), flush=True)
         prompts = torch.tensor(np.random.RandomState(seed).randint(
             0, cfg.vocab, (batch, seq)).astype(np.int32), device="cuda")
         torch.cuda.reset_peak_memory_stats()
+        moe.reset_dropped()
         kernels.reset_counts()  # the main path's run starts here
         t0 = time.perf_counter()
         logits, cache = model.prefill_fn(params, prompts, seq + steps)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        dropped = {"prefill": moe.dropped_pairs()}
+        moe.reset_dropped()
         tok = logits.argmax(-1)
         first = None
         step_ms = []
@@ -2008,6 +2072,8 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - ts) * 1e3)
         t2 = time.perf_counter()
+        dropped["decode_steps"] = moe.dropped_pairs()
+        moe.reset_dropped()
         # consistency: hidden() over the prompt and the first greedy
         # token, against the first decode step's logits
         ext = torch.cat([prompts, logits.argmax(-1)[:, None].to(
@@ -2018,23 +2084,27 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         counts = kernels.counts()["launches"]  # ... and ends here
+        dropped["check"] = moe.dropped_pairs()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         lens = cache["lens"].tolist()
-        err = float((first.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        bound = 3e-2 * max(1.0, scale)
+        pair = {"err": float((first.float() - ref.float()).abs().max()),
+                "scale": float(ref.float().abs().max()), "ref": ref.float(),
+                "dropped": dropped["prefill"] + dropped["check"]}
         del cache
-        err32, scale32, ref32 = f32_consistency(torch, cfg, params, ext,
-                                                seq)
-        bound32 = 1e-3 * max(1.0, scale32)
+        gated = gated_consistency(torch, cfg, params, ext, seq, pair)
+        g16, g32 = gated["bfloat16"], gated["float32"]
+        err, err32 = g16["err"], g32["err"]
+        bound = 3e-2 * max(1.0, g16["scale"])
+        bound32 = 1e-3 * max(1.0, g32["scale"])
         # the served bf16 forward against the float32 one on the same
-        # weights (the float32 path is the one the CPU tests hold to the
-        # reference at 1e-4): a reading, with no bound at full depth
-        bf16_vs_f32 = float((ref.float() - ref32).abs().max())
-        del ref32
+        # weights, both routing freely at the gated capacity (the float32
+        # path is the one the CPU tests hold to the reference at 1e-4): a
+        # reading, with no bound at full depth
+        free = gated.get("bfloat16_free", g16)
+        bf16_vs_f32 = float((free["ref"] - g32["ref"]).abs().max())
         finite = bool(torch.isfinite(logits).all()
                       and torch.isfinite(first).all())
-        print(json.dumps({
+        line = {
             "lm": arch, "batch": batch, "prompt": seq, "decode_steps": steps,
             "prefill_s": t1 - t0,
             "decode_ms_per_token": (t2 - t1) / steps * 1e3,
@@ -2048,9 +2118,24 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
             "consistency_err": err, "consistency_bound": bound,
             "f32_consistency_err": err32, "f32_consistency_bound": bound32,
             "bf16_vs_f32_err": bf16_vs_f32,
-            "bf16_vs_f32_rel": bf16_vs_f32 / max(1.0, scale32),
+            "bf16_vs_f32_rel": bf16_vs_f32 / max(1.0, g32["scale"]),
             "cache_lens": lens,
-            "launches": {k: counts[k] for k in LM_COUNTS}}), flush=True)
+            "launches": {k: counts[k] for k in LM_COUNTS}}
+        if cfg.family == "moe":
+            line.update({
+                "dropped_pairs": dropped,
+                "consistency_gated": ("configured" if gated["capacity_factor"]
+                                      == cfg.capacity_factor
+                                      else "no_drop_repeat"),
+                "consistency_capacity_factor": gated["capacity_factor"],
+                "consistency_routing": "bf16 pinned at the compared tokens, "
+                                       "float32 free",
+                "bf16_free_consistency_err": free["err"],
+                "routing_flips": {"bfloat16_free": free["flips"],
+                                  "float32": g32["flips"]},
+                "consistency_configured": gated["configured"]})
+        del gated, g16, g32, free
+        print(json.dumps(line), flush=True)
         if not finite or list(logits.shape) != [batch, cfg.vocab]:
             fail(f"{arch}: logits {list(logits.shape)}, finite={finite}")
         if err > bound or err32 > bound32:
@@ -2058,6 +2143,8 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
                  f"(bound {bound}; float32: {err32}, bound {bound32})")
         if lens != [seq + steps] * batch:
             fail(f"{arch}: cache lens {lens}")
+        if peak_gb >= 80:
+            fail(f"{arch}: peak device memory {peak_gb} GB, past one card")
         # two forwards ran (the prefill and the check), each launching the
         # model's kernel once per attention or SSD layer
         n = sum(k.value in KERNEL_KINDS for k in cfg.block_kinds())
@@ -2084,8 +2171,8 @@ def seed_conv_taps(torch, params, seed: int) -> None:
     reference's specs initialize them to zeros, which makes every SSM
     block of a fresh model output exactly 0 and every RG-LRU block's
     conv output its bias alone (0): the block would carry no signal and
-    the consistency check would prove nothing.  A dense model has no
-    such block and is left as it is."""
+    the consistency check would prove nothing.  A dense or MoE model has
+    no such block and is left as it is."""
     gen = None
     for blk in (*(params["blocks"][g] for g in sorted(params["blocks"])),
                 *params.get("tail", [])):
@@ -2101,24 +2188,124 @@ def seed_conv_taps(torch, params, seed: int) -> None:
                 conv[name].uniform_(-bound, bound, generator=gen)
 
 
-def f32_consistency(torch, cfg, params, ext, seq: int) -> tuple:
-    """The consistency check again with the same weights in float32
-    (``cfg.dtype`` only sets the compute type): decode after a prefill of
-    ``seq`` tokens against ``hidden()`` over ``seq + 1``.  In float32 the
-    two differ by reassociation only, so a fault that the bf16 bound
-    could hide shows here.  Returns (max abs error, max |logit|, the
-    forward's float32 logits at position ``seq``)."""
+class RouteProbe:
+    """Stands in for ``moe._route`` while a consistency pair runs.  In
+    the decode step (``mode = "decode"``) it keeps each MoE layer's
+    router probabilities; in the check forward (``mode = "check"``) it
+    counts the (layer, row) pairs whose top-k experts at the compared
+    tokens (flat ``rows``) differ from the decode step's, and with
+    ``pin`` gives those tokens the decode step's probabilities, so both
+    forwards route them alike."""
+
+    def __init__(self, torch, moe, k: int, rows: list, pin: bool):
+        self.torch, self.moe, self.route = torch, moe, moe._route
+        self.k, self.rows, self.pin = k, rows, pin
+        self.mode, self.decided, self.flips, self.layer = None, [], 0, 0
+
+    def __enter__(self):
+        self.moe._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+    def top(self, p):
+        return self.torch.topk(p, self.k).indices.sort(-1).values
+
+    def __call__(self, xf, w):
+        p = self.route(xf, w)
+        if self.mode == "decode":
+            self.decided.append(p)
+        elif self.mode == "check":
+            want = self.decided[self.layer]
+            self.layer += 1
+            self.flips += int((self.top(p[self.rows]) != self.top(want))
+                              .any(-1).sum())
+            if self.pin:
+                p = p.clone()
+                p[self.rows] = want
+        return p
+
+
+def consistency_pair(torch, cfg, params, ext, seq: int,
+                     pin: bool = False) -> dict:
+    """Decode after a prefill of ``seq`` tokens against ``hidden()`` over
+    ``seq + 1``, in ``cfg.dtype`` on the given weights (``cfg.dtype``
+    only sets the compute type).  Returns the max abs error ``err``, the
+    forward's max |logit| ``scale`` and float32 logits at position
+    ``seq`` (``ref``), the MoE pairs the three forwards dropped, and the
+    (layer, row) pairs whose experts differ between the step and the
+    forward at the compared tokens (``flips``; with ``pin`` the forward
+    takes the step's routing there)."""
+    from repro_torch.models import build_model, moe
+
+    model = build_model(cfg)
+    B = ext.shape[0]
+    rows = [b * (seq + 1) + seq for b in range(B)]
+    moe.reset_dropped()
+    with torch.no_grad(), RouteProbe(torch, moe, cfg.top_k, rows,
+                                     pin) as probe:
+        _, cache = model.prefill_fn(params, ext[:, :seq], seq + 1)
+        probe.mode = "decode"
+        step = model.decode_fn(params, ext[:, seq], cache)[0]
+        del cache
+        probe.mode, probe.layer = "check", 0
+        h, _ = model.hidden(params, ext)
+        ref = model._logits(params, h[:, seq, :]).float()
+    return {"err": float((step.float() - ref).abs().max()),
+            "scale": float(ref.abs().max()), "ref": ref,
+            "dropped": moe.dropped_pairs(), "flips": probe.flips}
+
+
+def gated_consistency(torch, cfg, params, ext, seq: int, pair) -> dict:
+    """The consistency check in bf16 (``pair``: the served run's first
+    decode step against its check forward) and again with the same
+    weights in float32, where the two differ by reassociation only, so a
+    fault that the bf16 bound could hide shows.  Returns the gated
+    pairs under "bfloat16" and "float32".
+
+    A MoE model needs two more steps.  (1) A forward drops the pairs
+    past an expert's capacity, and the prefill over ``seq`` tokens and
+    the forward over ``seq + 1`` may drop different ones (the extra
+    token shifts the second row's places in its experts' runs), so where
+    either configured pair dropped any, the pairs run again at capacity
+    factor E / k, where none can drop.  (2) Top-k routing is
+    discontinuous: in bf16 the step's and the forward's rounding differ
+    by an ulp or so, enough to flip an expert choice where two
+    probabilities nearly tie, and one flipped choice moves the logits by
+    far more than the bound.  So the gated bf16 pair routes the compared
+    tokens in the forward as the step routed them (``pin``), and the
+    pair with free routing is a reading (``bfloat16_free``, with its
+    ``flips``); float32 routes freely and is gated."""
     import dataclasses
 
-    from repro_torch.models import build_model
-
-    model = build_model(dataclasses.replace(cfg, dtype="float32"))
-    with torch.no_grad():
-        _, cache = model.prefill_fn(params, ext[:, :seq], seq + 1)
-        step, _ = model.decode_fn(params, ext[:, seq], cache)
-        h, _ = model.hidden(params, ext)
-        ref = model._logits(params, h[:, seq, :])
-    return (float((step - ref).abs().max()), float(ref.abs().max()), ref)
+    f32 = consistency_pair(torch, dataclasses.replace(cfg, dtype="float32"),
+                           params, ext, seq)
+    out = {"bfloat16": pair, "float32": f32}
+    if cfg.family != "moe":
+        return out
+    out["configured"] = {
+        "capacity_factor": cfg.capacity_factor,
+        "err": pair["err"], "bound": 3e-2 * max(1.0, pair["scale"]),
+        "dropped": pair["dropped"], "f32_err": f32["err"],
+        "f32_bound": 1e-3 * max(1.0, f32["scale"]),
+        "f32_dropped": f32["dropped"], "f32_flips": f32["flips"]}
+    gate = cfg
+    if pair["dropped"] or f32["dropped"]:
+        gate = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                   / cfg.top_k)
+        out["float32"] = consistency_pair(
+            torch, dataclasses.replace(gate, dtype="float32"), params, ext,
+            seq)
+    out["capacity_factor"] = gate.capacity_factor
+    out["bfloat16_free"] = consistency_pair(torch, gate, params, ext, seq)
+    out["bfloat16"] = consistency_pair(torch, gate, params, ext, seq,
+                                       pin=True)
+    for name in ("bfloat16", "bfloat16_free", "float32"):
+        if out[name]["dropped"]:
+            fail(f"{cfg.name}: {out[name]['dropped']} pairs dropped at "
+                 f"capacity factor {gate.capacity_factor} ({name})")
+    return out
 
 
 def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
@@ -2215,6 +2402,13 @@ KERNELS = [
      "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                  "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
+    # the same wrapper at moonshot-v1-16b-a3b's MHA shape (16/16 heads,
+    # hd 128): its launches are moonshot's
+    {"name": "flash_attention@mha", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+     "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                 "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     # the same wrapper at head dim 256 (recurrentgemma-9b), where it takes
     # the tensor-core kernel's hd-256 tiles (and times the CUDA-core
     # kernel's second instantiation on the same inputs)
@@ -2301,6 +2495,10 @@ def main() -> int:
         if k["name"] == "flash_attention":  # launches by route, and the
             extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core time
                      "simt_ms": r["simt_ms"]}
+        elif k["name"] == "flash_attention@mha":  # launches by route,
+            extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core, SDPA
+                     "simt_ms": r["simt_ms"],
+                     "sdpa_backend": r["sdpa_backend"]}
         elif k["name"] == "flash_attention@hd256":  # launches by route,
             extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core, SDPA
                      "simt_ms": r["simt_ms"],

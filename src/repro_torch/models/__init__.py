@@ -1,6 +1,6 @@
-"""LM substrate of the port: configs, layers, and the dense, SSM and
-hybrid (RG-LRU + local attention) decoder families (the serving path;
-ROADMAP A11 lists what waits)."""
+"""LM substrate of the port: configs, layers, and the dense, MoE, SSM
+and hybrid (RG-LRU + local attention) decoder families (the serving
+path; ROADMAP A11 lists what waits)."""
 
 from repro_torch.models.config import (ArchConfig, BlockKind, SHAPES,
                                        ShapeConfig, applicable_shapes)

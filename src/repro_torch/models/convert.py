@@ -13,23 +13,28 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
-                                       is_leaf_spec, tree_map)
+                                       is_leaf_spec, store_spec, tree_map)
 from repro_torch.models.transformer import model_spec
 
 
-def _leaf(spec: LeafSpec, arr, dev) -> torch.Tensor:
+def _leaf(spec: LeafSpec, stored: LeafSpec, arr, dev) -> torch.Tensor:
     a = np.asarray(arr)
     if tuple(a.shape) != spec.shape:
         raise ValueError(f"leaf shape {a.shape} != spec {spec.shape}")
     if str(a.dtype) != spec.dtype:
         raise ValueError(f"leaf dtype {a.dtype} != spec {spec.dtype}")
-    return torch.tensor(a, dtype=DTYPES[spec.dtype], device=dev)
+    return torch.tensor(a, dtype=DTYPES[spec.dtype], device=dev).to(
+        DTYPES[stored.dtype])
 
 
-def params_from_reference(tree, cfg: ArchConfig, device="cuda"):
+def params_from_reference(tree, cfg: ArchConfig, device="cuda",
+                          store: str | None = None):
     """The reference's params ``tree`` (numpy leaves) as the port's params
-    for ``cfg`` on ``device``.  Raises when the tree's layout, a leaf's
-    shape or a leaf's dtype differs from the port's ``model_spec``."""
+    for ``cfg`` on ``device``, stored as ``store_spec(spec, store)`` says
+    (``store=cfg.dtype``: the leaves read through a cast held in the
+    compute type).  Raises when the tree's layout, a leaf's shape or a
+    leaf's dtype differs from the port's ``model_spec``, whose dtypes
+    are the reference's."""
     dev = check_device(device)
     spec = model_spec(cfg)
 
@@ -47,5 +52,5 @@ def params_from_reference(tree, cfg: ArchConfig, device="cuda"):
                 check_keys(a, b, f"{path}[{i}]")
 
     check_keys(spec, tree)
-    return tree_map(lambda s, a: _leaf(s, a, dev), spec, tree,
-                    is_leaf=is_leaf_spec)
+    return tree_map(lambda s, st, a: _leaf(s, st, a, dev), spec,
+                    store_spec(spec, store), tree, is_leaf=is_leaf_spec)

@@ -78,16 +78,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def dense_spec(d_in: int, d_out: int, axes: tuple, bias: bool = False,
-               scale: float | None = None) -> dict:
-    out = {"w": normal((d_in, d_out), axes, scale=scale)}
+               scale: float | None = None, cast: bool = True) -> dict:
+    """``cast``: the leaves are read only by ``dense`` on inputs in the
+    compute type (pass False for a layer that runs on float32 inputs)."""
+    out = {"w": normal((d_in, d_out), axes, scale=scale, cast=cast)}
     if bias:
-        out["b"] = zeros((d_out,), (None,))
+        out["b"] = zeros((d_out,), (None,), cast=cast)
     return out
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in ``x``'s dtype: float32 weights are cast per call, as
-    the reference casts them (a transient copy of ``w`` on the device)."""
+    the reference casts them (a transient copy of ``w`` on the device);
+    for a leaf already held in ``x``'s dtype (``models/params.py``'s
+    16-bit store) the cast is a no-op."""
     w = p["w"].to(x.dtype)
     y = x @ w
     if "b" in p:

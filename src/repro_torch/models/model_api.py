@@ -1,11 +1,11 @@
 """Unified model API (port of the reference ``models/model_api.py``).
 
 ``build_model(cfg)`` returns an object exposing ``spec() / hidden /
-prefill_fn / decode_fn`` for the ``dense``, ``ssm`` and ``hybrid``
-families; the other families (``moe``: A11.1; ``encdec`` and ``vlm``:
-A11.3) raise ``NotImplementedError`` (ROADMAP A11).  The
-reference's ``input_specs`` (``ShapeDtypeStruct`` stand-ins for its
-dry-run) has no counterpart.
+prefill_fn / decode_fn`` for the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families; ``encdec`` and ``vlm`` raise
+``NotImplementedError`` (ROADMAP A11.3).  The reference's
+``input_specs`` (``ShapeDtypeStruct`` stand-ins for its dry-run) has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from __future__ import annotations
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import DecoderLM, cache_spec
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the ROADMAP item each family still waits for
-WAITS_FOR = {"moe": "A11.1", "encdec": "A11.3", "vlm": "A11.3"}
+WAITS_FOR = {"encdec": "A11.3", "vlm": "A11.3"}
 
 
 def _check_family(cfg: ArchConfig) -> None:

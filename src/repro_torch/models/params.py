@@ -8,6 +8,18 @@ params carry across leaf by leaf (``models/convert.py``).
 The logical axes are kept for the LM's sharding slice (ROADMAP A11.5);
 the port reads none of them yet.  ``abstract_params`` and ``axes_tree`` are
 dry-run tools of the reference and are not ported.
+
+The store.  Every spec says float32, the reference's store, and
+``init_params``/``params_from_reference`` keep it by default.  A leaf
+marked ``cast`` is one that every path reads only through a cast to the
+compute type (``cfg.dtype``): ``dense``'s weight and bias, the
+embedding, the head and the experts' weights.  Rounding such a leaf once
+when it is stored gives the bits that rounding it at each use gives, so
+``store=cfg.dtype`` holds those leaves in the compute type and computes
+exactly what the float32 store computes, at about half its bytes.  The
+leaves read in float32 (the MoE router, the norms, the RG-LRU gates'
+weights and decay, mamba2's ``a_log``/``dt_bias``/``d_skip`` and every
+conv tap) are not marked and stay float32.
 """
 
 from __future__ import annotations
@@ -30,6 +42,9 @@ class LeafSpec:
     init: str = "normal"  # normal | zeros | ones | rglru_a | ssm_a | dt_bias
     scale: float = 1.0
     dtype: str = "float32"
+    # read only through a cast to the compute type, so it may be stored
+    # in that type (``store_spec``)
+    cast: bool = False
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -66,6 +81,18 @@ def tree_leaves(tree, is_leaf=None) -> list:
     return [tree]
 
 
+def store_spec(spec_tree, store: str | None = None):
+    """``spec_tree`` as stored: each ``cast`` leaf's dtype set to
+    ``store`` (a compute type, such as ``cfg.dtype``); ``None`` keeps
+    the specs' float32."""
+    if store is None:
+        return spec_tree
+    if store not in DTYPES:
+        raise ValueError(f"unknown store dtype {store!r}")
+    return tree_map(lambda s: dataclasses.replace(s, dtype=store)
+                    if s.cast else s, spec_tree, is_leaf=is_leaf_spec)
+
+
 def param_bytes(spec_tree) -> int:
     return sum(math.prod(s.shape) * DTYPES[s.dtype].itemsize
                for s in tree_leaves(spec_tree, is_leaf_spec))
@@ -91,6 +118,29 @@ def _uniform(spec, gen, dev, lo, hi):
     return u.uniform_(lo, hi, generator=gen)
 
 
+# elements of float32 draws a 16-bit leaf takes at once (512 MB); one
+# slice of its leading dim at the least
+_DRAW_ELEMS = 1 << 27
+
+
+def _normal(spec: LeafSpec, gen: torch.Generator, dev, dt) -> torch.Tensor:
+    """A float32 leaf in one draw.  A 16-bit leaf is drawn a run of
+    leading-dim slices at a time into its own storage, so no float32
+    copy of the whole leaf exists: moonshot-v1-16b-a3b's stacked expert
+    leaf [48, 64, 2048, 1408] would need 35.4 GB for one."""
+    if dt == torch.float32:
+        return torch.randn(spec.shape, generator=gen, dtype=dt,
+                           device=dev).mul_(spec.scale)
+    out = torch.empty(spec.shape, dtype=dt, device=dev)
+    step = max(1, _DRAW_ELEMS // math.prod(spec.shape[1:]))
+    for i in range(0, spec.shape[0], step):
+        part = out[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               dtype=torch.float32,
+                               device=dev).mul_(spec.scale))
+    return out
+
+
 def _init_leaf(spec: LeafSpec, gen: torch.Generator, dev) -> torch.Tensor:
     dt = DTYPES[spec.dtype]
     if spec.init == "zeros":
@@ -98,9 +148,7 @@ def _init_leaf(spec: LeafSpec, gen: torch.Generator, dev) -> torch.Tensor:
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=dev)
     if spec.init == "normal":
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return x.mul_(spec.scale).to(dt)
+        return _normal(spec, gen, dev, dt)
     if spec.init == "rglru_a":
         # RG-LRU Lambda init: a = sigmoid(Lambda) uniform in [0.9, 0.999]
         u = _uniform(spec, gen, dev, 0.9, 0.999)
@@ -115,26 +163,31 @@ def _init_leaf(spec: LeafSpec, gen: torch.Generator, dev) -> torch.Tensor:
     raise ValueError(f"unknown init {spec.init!r}")
 
 
-def init_params(spec_tree, seed: int = 0, device="cuda"):
+def init_params(spec_tree, seed: int = 0, device="cuda",
+                store: str | None = None):
     """Concrete initialization on ``device``: every leaf drawn in turn
     from one ``torch.Generator`` seeded with ``seed``, in the spec's
-    order.  The numbers differ from ``jax.random``'s; tests carry the
-    reference's weights across instead."""
+    order, and stored as ``store_spec(spec_tree, store)`` says.  The
+    numbers differ from ``jax.random``'s (and a 16-bit leaf's from the
+    same leaf drawn in float32); tests carry the reference's weights
+    across instead."""
     dev = check_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tree_map(lambda s: _init_leaf(s, gen, dev), spec_tree,
-                    is_leaf=is_leaf_spec)
+    return tree_map(lambda s: _init_leaf(s, gen, dev),
+                    store_spec(spec_tree, store), is_leaf=is_leaf_spec)
 
 
-def normal(shape, axes, scale=None, dtype="float32") -> LeafSpec:
+def normal(shape, axes, scale=None, dtype="float32",
+           cast: bool = False) -> LeafSpec:
     if scale is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))
-    return LeafSpec(tuple(shape), tuple(axes), "normal", scale, dtype)
+    return LeafSpec(tuple(shape), tuple(axes), "normal", scale, dtype, cast)
 
 
-def zeros(shape, axes, dtype="float32") -> LeafSpec:
-    return LeafSpec(tuple(shape), tuple(axes), "zeros", dtype=dtype)
+def zeros(shape, axes, dtype="float32", cast: bool = False) -> LeafSpec:
+    return LeafSpec(tuple(shape), tuple(axes), "zeros", dtype=dtype,
+                    cast=cast)
 
 
 def ones(shape, axes, dtype="float32") -> LeafSpec:
@@ -144,5 +197,6 @@ def ones(shape, axes, dtype="float32") -> LeafSpec:
 def stacked(n: int, spec_tree):
     """Prepend a ``layers`` dim to every leaf of a per-layer spec."""
     return tree_map(
-        lambda s: LeafSpec((n, *s.shape), ("layers", *s.axes), s.init,
-                           s.scale, s.dtype), spec_tree, is_leaf=is_leaf_spec)
+        lambda s: dataclasses.replace(s, shape=(n, *s.shape),
+                                      axes=("layers", *s.axes)),
+        spec_tree, is_leaf=is_leaf_spec)

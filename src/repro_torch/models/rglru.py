@@ -37,8 +37,9 @@ def rglru_spec(cfg) -> dict:
         "in_gate": dense_spec(d, dr, ("embed", "mlp")),
         "conv_w": zeros((w, dr), (None, "mlp")),
         "conv_b": zeros((dr,), ("mlp",)),
-        "w_a": dense_spec(dr, dr, ("mlp", "mlp")),
-        "w_i": dense_spec(dr, dr, ("mlp", "mlp")),
+        # float32 GEMMs (``_gates``): stored float32 in every store
+        "w_a": dense_spec(dr, dr, ("mlp", "mlp"), cast=False),
+        "w_i": dense_spec(dr, dr, ("mlp", "mlp"), cast=False),
         "lam": LeafSpec((dr,), ("mlp",), "rglru_a"),
         "out": dense_spec(dr, d, ("mlp", "embed")),
     }

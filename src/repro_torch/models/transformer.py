@@ -1,5 +1,5 @@
-"""Decoder-only LM for the dense, SSM and hybrid families: the serving
-path.
+"""Decoder-only LM for the dense, MoE, SSM and hybrid families: the
+serving path.
 
 Port of the reference ``models/transformer.py``: token embedding, a loop
 over the stacked repeating block groups (the reference's ``lax.scan``)
@@ -10,13 +10,17 @@ entry points serve a model:
                    a decode cache sized ``max_len``
   ``decode_fn``  — one-token serve step against the cache
 
-Block kinds ``ATTN``, ``SSM``, ``RECURRENT`` (RG-LRU) and ``LOCAL_ATTN``
-(sliding-window attention with a ring cache) are ported; ``MOE`` raises
-``NotImplementedError`` (ROADMAP A11.1), as does the training entry
-point ``loss_fn`` (A11.4).  Without the enc-dec family there are no
-sinusoidal positions.  The param and cache trees keep the reference's
-layout (stacked ``blocks``/``layers`` with a leading group dim, a
-``tail`` list), so carrying weights across is a plain map.
+Every block kind is ported: ``ATTN``, ``MOE`` (attention, then the
+capacity-bounded expert FFN of ``models/moe.py`` in place of the MLP;
+its aux loss is dropped, since serving has no loss), ``SSM``,
+``RECURRENT`` (RG-LRU) and ``LOCAL_ATTN`` (sliding-window attention with
+a ring cache).  The training entry point ``loss_fn`` raises
+``NotImplementedError`` (ROADMAP A11.4).  Without the enc-dec family
+there are no sinusoidal positions.  The param and cache trees keep the
+reference's layout (stacked ``blocks``/``layers`` with a leading group
+dim, a ``tail`` list), so carrying weights across is a plain map; the
+weights may be held in the float32 store or the 16-bit one
+(``models/params.py``), which compute the same bits.
 
 In place: ``decode_fn`` writes each layer's new K/V row (and ring
 position) into the cache it is given (the reference's ``.at[].set``
@@ -39,22 +43,12 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
                                        project_qkv, rmsnorm_spec)
 from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
                                        mamba2_spec, ssd_decode_step)
+from repro_torch.models.moe import apply_moe, moe_spec
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_leaves,
                                        tree_map)
 from repro_torch.models.rglru import (apply_rglru, rglru_decode_step,
                                       rglru_spec)
-
-PORTED = (BlockKind.ATTN, BlockKind.SSM, BlockKind.RECURRENT,
-          BlockKind.LOCAL_ATTN)
-
-
-def _unported(kind) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {BlockKind(kind).value!r} is not ported yet "
-        "(ROADMAP A11.1): the port serves the dense, ssm and hybrid "
-        "families")
-
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -69,22 +63,22 @@ def block_spec(cfg: ArchConfig, kind: BlockKind) -> dict:
     if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
         return {"ln1": _norm_spec(cfg), "attn": attention_spec(cfg),
                 "ln2": _norm_spec(cfg), "mlp": mlp_spec(cfg)}
+    if kind == BlockKind.MOE:
+        return {"ln1": _norm_spec(cfg), "attn": attention_spec(cfg),
+                "ln2": _norm_spec(cfg), "moe": moe_spec(cfg)}
     if kind == BlockKind.SSM:
         return {"ln": _norm_spec(cfg), "ssm": mamba2_spec(cfg)}
     if kind == BlockKind.RECURRENT:
         return {"ln1": _norm_spec(cfg), "rglru": rglru_spec(cfg),
                 "ln2": _norm_spec(cfg), "mlp": mlp_spec(cfg)}
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def _layer_groups(cfg: ArchConfig) -> tuple[list[BlockKind], int,
                                             list[BlockKind]]:
     """(group_pattern, n_groups, tail_kinds).  Uniform archs: the group is
-    one block and there is no tail.  Any unported kind raises."""
+    one block and there is no tail."""
     kinds = cfg.block_kinds()
-    for k in set(kinds):
-        if k not in PORTED:
-            raise _unported(k)
     if cfg.pattern:
         g = [BlockKind(p) for p in cfg.pattern]
         n = len(kinds) // len(g)
@@ -97,7 +91,7 @@ def model_spec(cfg: ArchConfig) -> dict:
     gspec = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(group)}
     spec: dict[str, Any] = {
         "embed": normal((cfg.padded_vocab(), cfg.d_model), ("vocab", "embed"),
-                        scale=0.02),
+                        scale=0.02, cast=True),
         "blocks": stacked(n_groups, gspec),
         "final_norm": _norm_spec(cfg),
     }
@@ -105,7 +99,7 @@ def model_spec(cfg: ArchConfig) -> dict:
         spec["tail"] = [block_spec(cfg, k) for k in tail]
     if not cfg.tie_embeddings:
         spec["head"] = normal((cfg.d_model, cfg.padded_vocab()),
-                              ("embed", "vocab"))
+                              ("embed", "vocab"), cast=True)
     return spec
 
 
@@ -125,11 +119,10 @@ def apply_block(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
                 positions, collect_cache: bool = False, max_len: int = 0):
     """-> (h', cache_entry) — cache entry only when collect_cache."""
     cache = None
-    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
+    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE):
         window = cfg.window if kind == BlockKind.LOCAL_ATTN else 0
         h, (k, v) = _attn_part(p, h, cfg, positions, window)
-        x2 = apply_norm(p["ln2"], h, cfg.norm)
-        h = h + apply_mlp(p["mlp"], x2, cfg)
+        h = h + _ffn(p, apply_norm(p["ln2"], h, cfg.norm), kind, cfg)
         if collect_cache:
             cache = _attn_cache_from_prefill(k, v, kind, cfg, max_len)
     elif kind == BlockKind.SSM:
@@ -151,8 +144,16 @@ def apply_block(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
         x2 = apply_norm(p["ln2"], h, cfg.norm)
         h = h + apply_mlp(p["mlp"], x2, cfg)
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     return h, cache
+
+
+def _ffn(p, x, kind, cfg):
+    """The feed-forward half of an attention block: the experts for
+    ``MOE`` (aux loss dropped), else the MLP."""
+    if kind == BlockKind.MOE:
+        return apply_moe(p["moe"], x, cfg)[0]
+    return apply_mlp(p["mlp"], x, cfg)
 
 
 def _attn_cache_from_prefill(k, v, kind, cfg, max_len):
@@ -196,7 +197,7 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
     Attention writes the new K/V row (for ``LOCAL_ATTN`` into ring slot
     ``lens % W``, with its position) into ``cache``'s tensors in place;
     the SSM and RG-LRU steps return a fresh state."""
-    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN):
+    if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE):
         x = apply_norm(p["ln1"], h, cfg.norm)
         q, k, v = project_qkv(p["attn"], x, cfg, lens[:, None])
         B = h.shape[0]
@@ -217,8 +218,7 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
         vc[rows, at] = v[:, 0].to(vc.dtype)
         a = decode_attention(q[:, 0], kc, vc, valid, h.dtype)
         h = h + dense(p["attn"]["o"], a.reshape(B, -1))[:, None, :]
-        x2 = apply_norm(p["ln2"], h, cfg.norm)
-        h = h + apply_mlp(p["mlp"], x2, cfg)
+        h = h + _ffn(p, apply_norm(p["ln2"], h, cfg.norm), kind, cfg)
     elif kind == BlockKind.SSM:
         x = apply_norm(p["ln"], h, cfg.norm)
         y, cache = ssd_decode_step(p["ssm"], x, cfg, cache)
@@ -232,7 +232,7 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
         x2 = apply_norm(p["ln2"], h, cfg.norm)
         h = h + apply_mlp(p["mlp"], x2, cfg)
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     return h, cache
 
 
@@ -242,7 +242,7 @@ def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
 
 def block_cache_spec(cfg: ArchConfig, kind: BlockKind, B: int, max_len: int):
     dt = cfg.dtype
-    if kind == BlockKind.ATTN:
+    if kind in (BlockKind.ATTN, BlockKind.MOE):
         sh = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
         ax = ("batch", "cache_seq", None, None)
         return {"k": LeafSpec(sh, ax, "zeros", dtype=dt),
@@ -269,7 +269,7 @@ def block_cache_spec(cfg: ArchConfig, kind: BlockKind, B: int, max_len: int):
                               dtype="float32"),
                 "conv": LeafSpec((B, W - 1, dr), ("batch", None, "mlp"),
                                  "zeros", dtype=dt)}
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def cache_spec(cfg: ArchConfig, B: int, max_len: int) -> dict:
@@ -347,7 +347,6 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
         self.cfg = cfg
         self.device = check_device(device)
-        _layer_groups(cfg)  # refuses unported block kinds early
 
     # -- params ------------------------------------------------------------
     def spec(self) -> dict:

@@ -7,8 +7,9 @@ and each float kernel must agree with its plain version within a stated
 tolerance — the plain versions are held against the reference Pallas
 kernels on the CPU by ``test_torch_kernels.py`` and
 ``test_torch_lm_kernels.py``.  The LM models' prefill and decode on the
-card are held against the same models' CPU runs.  This file imports nothing of JAX, so it
-runs where only the port is installed.
+card are held against the same models' CPU runs, and so is the MoE
+layer, with and without dropped pairs.  This file imports nothing of
+JAX, so it runs where only the port is installed.
 """
 
 import zlib
@@ -640,6 +641,29 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 2048])
+def test_cuda_fused_attention_mha_equals_plain(cuda, S):
+    """The model's entry point at moonshot-v1-16b-a3b's attention: 16
+    query heads over 16 kv heads (a group of 1), hd 128, bf16, causal,
+    on the tensor-core route, within ``FLASH_TOL``; 2048 is its prefill
+    length."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import fused_attention
+    q, k, v = flash_inputs(cuda, torch.bfloat16, "cmha", 2, S, S, 16, 16,
+                           128)
+    before = dict(kernels.LAUNCHES)
+    got = fused_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_wgmma"] == (
+        before["flash_attention_wgmma"] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 128), (16, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype, Hq, Hkv, hd):
@@ -726,13 +750,76 @@ def test_cuda_lm_wrappers_reject_bad_input(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cf", [4.0, 1.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_apply_moe_equals_cpu(cuda, dtype, cf):
+    """The MoE layer (router, dispatch, experts, combine; stock torch
+    ops) at moonshot's smoke width on the card against the same call on
+    the CPU, at capacity factors where no pair drops (4.0) and where
+    pairs drop (1.0, 0.5): no host sync inside the call on the card, the
+    same pairs dropped, y within 1e-5 in float32 and 3e-2 * max(1,
+    scale) in bfloat16, aux within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b", smoke=True),
+                              dtype=dtype, capacity_factor=cf)
+    p_cpu = init_params(moe.moe_spec(cfg), 0, device="cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x = T(rng("cmoe", cf).randn(2, 64, cfg.d_model).astype(
+        np.float32)).to(tdt)
+    outs = []
+    for params, dev in ((p_gpu, cuda), (p_cpu, "cpu")):
+        moe.reset_dropped()
+        xd = x.to(dev)
+        # the layer makes no host sync on the card (its drop count stays
+        # on the device until read)
+        torch.cuda.set_sync_debug_mode("error" if dev == cuda else 0)
+        try:
+            y, aux = moe.apply_moe(params, xd, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append((y.float().cpu(), float(aux), moe.dropped_pairs()))
+    (y, aux, dropped), (y_cpu, aux_cpu, dropped_cpu) = outs
+    assert dropped == dropped_cpu and (dropped > 0) == (cf < 4.0), dropped
+    scale = float(y_cpu.abs().max())
+    tol = 1e-5 if dtype == "float32" else 3e-2 * max(1.0, scale)
+    assert float((y - y_cpu).abs().max()) <= tol
+    assert abs(aux - aux_cpu) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_init_params_16bit_store(cuda, monkeypatch):
+    """``store=cfg.dtype`` on the card, each 16-bit leaf drawn one slice
+    of its leading dim at a time: seeded, the cast leaves in bf16 and
+    the rest in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params, params
+    from repro_torch.models.params import is_leaf_spec, tree_leaves
+    monkeypatch.setattr(params, "_DRAW_ELEMS", 1)
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    spec = build_model(cfg).spec()
+    a, b = (init_params(spec, 5, store=cfg.dtype) for _ in range(2))
+    for s, x, y in zip(tree_leaves(spec, is_leaf_spec), tree_leaves(a),
+                       tree_leaves(b)):
+        assert x.is_cuda and tuple(x.shape) == s.shape
+        assert x.dtype == (torch.bfloat16 if s.cast else torch.float32)
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b",
+                                  "moonshot-v1-16b-a3b"])
 def test_cuda_model_equals_cpu(cuda, arch, dtype):
     """A smoke model's prefill (a 40-token prompt: the attention kernel's
     branch, whole SSD chunks plus a pad, a full 32-slot ring for the
-    hybrid's local attention) and two decode steps on the card, against
+    hybrid's local attention, the MoE dispatch at moonshot's capacity
+    factor of 4.0) and two decode steps on the card, against
     the same weights on the CPU: float32 within 1e-4 of the logits'
     scale, bfloat16 within 3e-2 * max(1, scale).  One prefill forward
     launches its kernel once per attention (or SSD) layer."""
@@ -771,8 +858,8 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     from repro_torch.models.config import BlockKind
     kinds = cfg.block_kinds()
     name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
-    n = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.SSM)
-            for k in kinds)
+    n = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.SSM,
+                  BlockKind.MOE) for k in kinds)
     assert kernels.LAUNCHES[name] == n  # one prefill forward
     for got, want in zip(*outs):
         scale = float(want.abs().max())

@@ -4,12 +4,16 @@ Inputs are made with numpy from a seed; the reference's params come from
 ``repro.models.init_params`` and are carried across with
 ``params_from_reference``, so both packages compute from the same
 weights.  Each layer the serving path runs is held to the reference's at
-1e-5 in float32; every ``dense``, ``ssm`` and ``hybrid`` smoke config's
-``hidden``, ``prefill_fn`` and three ``decode_fn`` steps to 1e-4 of the
-output's scale in float32.  In bfloat16 the dense and ssm configs are
-held to the reference in bfloat16 at its own decode-vs-forward bound
-(``3e-2 * max(1, scale)``, ``tests/test_models.py``), the hybrid to the
-reference in float32 at ``HYBRID_BF16_TOL`` (see there).
+1e-5 in float32 (the MoE layer in ``tests/test_torch_moe.py``); every
+``dense``, ``moe``, ``ssm`` and ``hybrid`` smoke config's ``hidden``,
+``prefill_fn`` and three ``decode_fn`` steps to 1e-4 of the output's
+scale in float32, moonshot's also at a capacity factor where the prefill
+drops pairs.  In bfloat16 the dense, moe and ssm configs are held to the
+reference in bfloat16 at its own decode-vs-forward bound (``3e-2 *
+max(1, scale)``, ``tests/test_models.py``), the hybrid to the reference
+in float32 at ``HYBRID_BF16_TOL`` (see there).  The 16-bit weight store
+(``store=cfg.dtype``) computes the float32 store's bits in every
+family.
 On the CPU the attention kernel's and the SSD kernel's plain versions
 run: the smoke configs' 40-token prompts take ``attention()``'s chunked
 branch and pad ``apply_ssd`` to whole chunks.  The hybrid's local
@@ -43,13 +47,16 @@ from repro_torch.models import (BlockKind, build_model, init_params,
                                 model_cache_spec, param_count)
 from repro_torch.models import layers as TL
 from repro_torch.models import mamba2 as TM
+from repro_torch.models import moe as TMOE
+from repro_torch.models import params as TP
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model_api import WAITS_FOR
 from repro_torch.models.params import is_leaf_spec, tree_leaves
 
 SERVED = ["yi-6b", "qwen2-7b", "starcoder2-15b", "mistral-large-123b",
-          "mamba2-1.3b", "recurrentgemma-9b"]
+          "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-1.3b",
+          "recurrentgemma-9b"]
 OTHER = [a for a in ARCH_NAMES if a not in SERVED]
 TOL = 1e-5
 
@@ -75,6 +82,12 @@ def close(got, want, tol=TOL):
 
 def f32(cfg):
     return dataclasses.replace(cfg, dtype="float32")
+
+
+def ref_fields(s):
+    """A spec leaf's fields as the reference defines them (the port's
+    ``LeafSpec`` adds ``cast``, the mark of its 16-bit store)."""
+    return tuple(getattr(s, f.name) for f in dataclasses.fields(RefLeafSpec))
 
 
 def ref_params(spec_fn, *args, seed=0):
@@ -103,8 +116,7 @@ def test_model_spec_matches_reference(arch):
     ref = jax.tree.leaves(ref_build(ref_config(arch)).spec(),
                           is_leaf=lambda x: isinstance(x, RefLeafSpec))
     got = tree_leaves(build_model(cfg, device="cpu").spec(), is_leaf_spec)
-    assert [dataclasses.astuple(s) for s in got] == \
-        [dataclasses.astuple(s) for s in ref]
+    assert [ref_fields(s) for s in got] == [ref_fields(s) for s in ref]
     assert param_count(build_model(cfg, device="cpu").spec()) == sum(
         math.prod(s.shape) for s in ref)
 
@@ -116,8 +128,7 @@ def test_cache_spec_matches_reference():
                               is_leaf=lambda x: isinstance(x, RefLeafSpec))
         got = tree_leaves(model_cache_spec(get_config(arch), 2, 64),
                           is_leaf_spec)
-        assert [dataclasses.astuple(s) for s in got] == \
-            [dataclasses.astuple(s) for s in ref]
+        assert [ref_fields(s) for s in got] == [ref_fields(s) for s in ref]
 
 
 def test_init_params_is_seeded_and_follows_the_spec():
@@ -142,6 +153,31 @@ def test_init_params_is_seeded_and_follows_the_spec():
     assert 0.015 < std < 0.025                # normal, scale 0.02
 
 
+@pytest.mark.parametrize("draw", ["whole", "slices"])
+def test_init_params_16bit_store_is_seeded(monkeypatch, draw):
+    """``store=cfg.dtype``: each leaf marked ``cast`` is drawn into the
+    compute type, every other leaf is float32, and the same seed gives
+    the same leaves, whether a 16-bit leaf is drawn in one run or one
+    slice of its leading dim at a time (``slices``)."""
+    if draw == "slices":
+        monkeypatch.setattr(TP, "_DRAW_ELEMS", 1)
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    spec = build_model(cfg, device="cpu").spec()
+    a, b, c = (init_params(spec, seed, device="cpu", store=cfg.dtype)
+               for seed in (3, 3, 4))
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert not torch.equal(a["embed"], c["embed"])
+    for s, x in zip(tree_leaves(spec, is_leaf_spec), la):
+        assert tuple(x.shape) == s.shape
+        assert x.dtype == (torch.bfloat16 if s.cast else torch.float32)
+    assert 0.015 < float(a["embed"].float().std()) < 0.025  # scale 0.02
+    gate = a["blocks"]["b0"]["moe"]["gate"].float()   # 1/sqrt(d_model)
+    assert abs(float(gate.std()) * cfg.d_model ** 0.5 - 1.0) < 0.1
+    with pytest.raises(ValueError, match="store"):
+        init_params(spec, 0, device="cpu", store="bf16")
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("yi-6b", smoke=True)
@@ -154,19 +190,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
         params_from_reference({}, cfg)
 
 
-@pytest.mark.parametrize("kind", [BlockKind.MOE])
-def test_unported_block_kinds_raise(kind):
-    cfg = get_config("yi-6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.block_spec(cfg, kind)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.block_cache_spec(cfg, kind, 1, 8)
-
-
 @pytest.mark.parametrize("arch", OTHER)
 def test_unported_families_raise(arch):
-    """Each names the ROADMAP item it waits for (A11.1 MoE, A11.3 enc-dec
-    and VLM)."""
+    """Each names the ROADMAP item it waits for (A11.3: enc-dec and
+    VLM)."""
     cfg = get_config(arch, smoke=True)
     item = WAITS_FOR[cfg.family].replace(".", r"\.")
     with pytest.raises(NotImplementedError, match=item):
@@ -469,11 +496,12 @@ def ref_outputs(ref, params, toks, S, steps):
                           toks, S, steps)
 
 
-def served_setup(arch, dtype, S, steps, seed=0):
-    """(smoke cfg in ``dtype``, reference params with seeded conv taps,
-    the port's model and params on the same weights, B = 2 prompts of
-    S + steps tokens)."""
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+def served_setup(arch, dtype, S, steps, seed=0, **overrides):
+    """(smoke cfg in ``dtype`` with ``overrides``, reference params with
+    seeded conv taps, the port's model and params on the same weights,
+    B = 2 prompts of S + steps tokens)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype,
+                              **overrides)
     salt = (arch,) if seed == 0 else (arch, seed)
     rp = ref_init(ref_build(cfg).spec(), jax.random.PRNGKey(seed))
     seed_conv_taps(rp, rs("conv", *salt))
@@ -509,7 +537,7 @@ def max_errs(got, want):
 HYBRID_BF16_TOL = 8e-2
 
 
-def model_matches_reference(arch, dtype, S, steps):
+def model_matches_reference(arch, dtype, S, steps, **overrides):
     """``hidden`` over S + steps tokens, ``prefill_fn`` over S and
     ``steps`` ``decode_fn`` steps, port against reference, same weights;
     the logits and the whole cache (groups and tail) after the prefill
@@ -522,7 +550,8 @@ def model_matches_reference(arch, dtype, S, steps):
     bf16 computations (the reference's and the port's, which round
     products in different orders) lie as far from each other as each
     lies from float32."""
-    cfg, rp, model, tp, toks = served_setup(arch, dtype, S, steps)
+    cfg, rp, model, tp, toks = served_setup(arch, dtype, S, steps,
+                                            **overrides)
     hybrid_bf16 = dtype == "bfloat16" and cfg.family == "hybrid"
     ref = ref_build(f32(cfg) if hybrid_bf16 else cfg)
     tol = (1e-4 if dtype == "float32"
@@ -556,6 +585,60 @@ def test_model_matches_reference(arch, dtype):
     """A 40-token prompt and three decode steps (past the hybrid smoke
     config's 32-slot ring)."""
     model_matches_reference(arch, dtype, 40, 3)
+
+
+def test_moe_with_drops_matches_reference():
+    """moonshot's smoke config at capacity factor 1.0 (its own is 4.0,
+    where nothing drops) in float32: the prefill's 80 tokens fill 4
+    experts of capacity 40 unevenly and drop pairs, ``hidden()`` too,
+    and the port still matches the reference's hidden, prefill and
+    three decode steps (two tokens a step: capacity 8, no drop)."""
+    arch, S = "moonshot-v1-16b-a3b", 40
+    _, _, model, tp, toks = served_setup(arch, "float32", S, 3,
+                                         capacity_factor=1.0)
+    TMOE.reset_dropped()
+    model.prefill_fn(tp, T(toks[:, :S]), S + 8)
+    assert TMOE.dropped_pairs() > 0
+    model_matches_reference(arch, "float32", S, 3, capacity_factor=1.0)
+
+
+# leaves every path reads in float32: the 16-bit store keeps them so
+F32_READ = {"router", "ln", "ln1", "ln2", "final_norm", "norm", "w_a",
+            "w_i", "lam", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip"}
+
+
+def leaf_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_paths(tree[k],
+                                                            path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in leaf_paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
+                                  "mamba2-1.3b", "recurrentgemma-9b"],
+                         ids=["dense", "moe", "ssm", "hybrid"])
+def test_16bit_store_equals_float32_store(arch):
+    """The same reference weights carried across in the float32 store and
+    in the 16-bit one (``store=cfg.dtype``), bf16 compute: ``hidden``,
+    then the logits and every cache leaf after a prefill and after each
+    of three decode steps, equal bit for bit.  The leaves read in
+    float32 (``F32_READ``) stay float32 and equal; the rest are bf16."""
+    cfg, rp, model, tp, toks = served_setup(arch, "bfloat16", 40, 3)
+    t16 = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu",
+                                store=cfg.dtype)
+    for (path, x16), (_, x32) in zip(leaf_paths(t16), leaf_paths(tp)):
+        f32_read = bool(F32_READ & set(path))
+        assert x16.dtype == (torch.float32 if f32_read
+                             else torch.bfloat16), path
+        assert torch.equal(x16, x32.to(x16.dtype)), path
+    got = port_outputs(model, t16, toks, 40, 3)
+    want = port_outputs(model, tp, toks, 40, 3)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
 
 
 @pytest.mark.parametrize("S", [30, 70, 100],

@@ -81,8 +81,14 @@ def test_rglru_spec_is_the_references():
     ref = jax.tree.leaves(RR.rglru_spec(cfg),
                           is_leaf=lambda x: isinstance(x, RefLeafSpec))
     got = tree_leaves(TR.rglru_spec(cfg), is_leaf_spec)
-    assert [dataclasses.astuple(s) for s in got] == \
-        [dataclasses.astuple(s) for s in ref]
+    # every field the reference defines (the port's ``cast`` marks its
+    # 16-bit store: the gates' ``w_a``/``w_i`` run in float32, unmarked)
+    fields = [f.name for f in dataclasses.fields(RefLeafSpec)]
+    assert [tuple(getattr(s, f) for f in fields) for s in got] == \
+        [tuple(getattr(s, f) for f in fields) for s in ref]
+    spec = TR.rglru_spec(cfg)
+    assert not spec["w_a"]["w"].cast and not spec["w_i"]["w"].cast
+    assert spec["in_x"]["w"].cast and spec["out"]["w"].cast
 
 
 def test_rglru_a_init_is_in_the_references_range():
