@@ -64,25 +64,37 @@ Phases, each fatal on failure:
    ``moonshot-v1-16b-a3b`` (48 MoE layers, d=2048, MHA 16/16 at head dim
    128, 64 experts of d_ff 1408 with top-6 routing, capacity factor
    1.25; 28.1 B parameters, held in the 16-bit store: the leaves the
-   forward casts in bf16, 56.1 GB) at full width and depth with random
-   weights from ``--seed`` (the SSM and RG-LRU conv taps drawn as
-   upstream's), each served greedily: B = 2 prompts of S random tokens
-   (2048; 4096 for recurrentgemma, past its window) through
-   ``prefill_fn`` (``max_len = S + 16``), then 16 ``decode_fn`` steps.
-   The first decode step's logits must match ``hidden()`` over the
-   prompt plus that token (``3e-2 * max(1, scale)``, as the reference's
-   decode test; ``1e-3 * max(1, scale)`` with the same weights in
+   forward casts in bf16, 56.1 GB), ``whisper-tiny`` (4 encoder and 4
+   decoder layers, d=384, 6/6 heads at head dim 64, vocab 51,865) and
+   ``phi-3-vision-4.2b`` (32 layers, d=3072, 32/32 heads at head dim 96,
+   576 patch embeddings in front of the text) at full width and depth
+   with random weights from ``--seed`` (the SSM and RG-LRU conv taps
+   drawn as upstream's; whisper's frames and phi-3-vision's patches
+   drawn with numpy at the reference test's 0.02 scale), each served
+   greedily: B = 2 prompts of S random tokens (2048; 4096 for
+   recurrentgemma, past its window; 1472 behind phi-3-vision's 576
+   patches; for whisper B = 16 clips of 1500 encoder frames and 432
+   tokens, so the 16 steps end at its 448-token context) through
+   ``prefill_fn`` (``max_len`` = patches + S + 16), then 16
+   ``decode_fn`` steps.
+   The first decode step's logits must match the sequence form over the
+   prompt plus that token (``hidden()``; for whisper ``encode`` feeding
+   ``_decoder_hidden``) within ``3e-2 * max(1, scale)``, as the
+   reference's decode test (``1e-3 * max(1, scale)`` with the same weights in
    float32; for moonshot, where either forward of a pair dropped MoE
    pairs over capacity, both pairs again at capacity factor E / k,
    where none can drop, and those are gated), the peak device memory
    must stay under 80 GB, and the two forwards must have launched
-   ``flash_attention`` (yi and moonshot at head dim 128 and
-   recurrentgemma at 256, every launch on the tensor-core ``wgmma``
-   route) or ``ssd_intra`` (mamba2) once per attention or SSD layer
-   each; moonshot's line adds the pairs each forward dropped.  Then a
-   profiled prefill (device busy share, attention's device time, and
-   for recurrentgemma one layer's RG-LRU scan timed apart with its share
-   of the prefill) and a profiled 4-step decode window;
+   ``flash_attention`` (yi and moonshot at head dim 128, recurrentgemma
+   at 256 and whisper at 64, every launch on the tensor-core ``wgmma``
+   route; phi-3-vision at 96, every launch on the CUDA-core one) or
+   ``ssd_intra`` (mamba2) once per attention or SSD layer each (for
+   whisper once per encoder layer and once per decoder layer's cross-
+   attention; its decoder's self-attention is short enough to
+   materialize); moonshot's line adds the pairs each forward dropped.
+   Then a profiled prefill (device busy share, attention's device time
+   and share, and for recurrentgemma one layer's RG-LRU scan timed apart
+   with its share of the prefill) and a profiled 4-step decode window;
 5. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shape the fact path gave
    them, the LM kernels at the prefill shapes of the LM phase),
@@ -108,7 +120,12 @@ Phases, each fatal on failure:
    prefill (head dim 256, 16/1 heads, window 2048, bf16 and fp16 on the
    tensor-core route; the same in float32 and a ragged head-dim-192
    case on the CUDA-core one), beside SDPA with the band as an explicit
-   mask (its backend named);
+   mask (its backend named); non-causal at whisper-tiny's encoder (16 ×
+   1500 frames, 6/6 heads, hd 64) and cross-attention (432 rows onto
+   1500 frames), bf16 on the tensor-core route (the encoder's also in
+   float32 on the CUDA-core one), and causal at phi-3-vision-4.2b's
+   prefill (2 × 2048 positions, 32/32 heads, hd 96) on the CUDA-core
+   route, each beside SDPA;
 6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
@@ -116,7 +133,9 @@ Phases, each fatal on failure:
    ``flash_attention@mha`` row (moonshot's shape) counts moonshot's; its
    ``flash_attention@hd256`` row (the same wrapper at head dim 256)
    counts recurrentgemma's launches by route and carries ``simt_ms``
-   and ``sdpa_ms``;
+   and ``sdpa_ms``; ``flash_attention@encdec`` counts whisper's and
+   carries its cross-attention row (``cross``), ``flash_attention@hd96``
+   phi-3-vision's, each with ``sdpa_ms``;
    the merge ranks' row times its two launches apart (``left_ms``,
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
@@ -756,24 +775,81 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         return torch.tensor(rng.randn(*shape).astype(np.float32),
                             device=dev).to(dtype)
 
-    def attention_case(b_, sq, skv, hq, hkv, d_, win, dt, tol, route):
+    def attention_case(b_, sq, skv, hq, hkv, d_, win, dt, tol, route,
+                       causal=True):
         """One attention comparison on the route it must take."""
         qq = normal(b_, sq, hq, d_, dtype=dt)
         kk, vv = (normal(b_, skv, hkv, d_, dtype=dt) for _ in range(2))
         before = kernels.LAUNCHES["flash_attention_wgmma"]
         what = (f"flash_attention ({b_}x{sq}x{skv}, {hq}/{hkv} heads, hd "
-                f"{d_}, window {win}, {dt})")
+                f"{d_}, window {win}, causal {causal}, {dt})")
         err = float_err(
-            torch, flash_attention(qq, kk, vv, causal=True, window=win),
-            flash_attention_plain(qq, kk, vv, causal=True, window=win), tol,
-            what)
+            torch, flash_attention(qq, kk, vv, causal=causal, window=win),
+            flash_attention_plain(qq, kk, vv, causal=causal, window=win),
+            tol, what)
         took = ("wgmma" if kernels.LAUNCHES["flash_attention_wgmma"] > before
                 else "simt")
         if took != route:
             fail(f"{what}: took the {took} route, expected {route}")
         return {"shape": [b_, sq, skv, hq, hkv, d_], "window": win,
-                "dtype": str(dt).replace("torch.", ""), "route": took,
-                "max_abs_err": err, "tolerance": tol}
+                "causal": causal, "dtype": str(dt).replace("torch.", ""),
+                "route": took, "max_abs_err": err, "tolerance": tol}
+
+    def attention_row(b_, sq, skv, h, d_, causal, route, what):
+        """Attention at one of the LM phase's shapes in bf16 (h query
+        heads over h kv heads), against its plain version on the route it
+        must take (2e-2, as the bf16 cases), timed beside its plain
+        version, SDPA on the same inputs in SDPA's [B, H, S, hd] layout
+        (its backend named; its distance from the kernel's output
+        recorded, not gated) and, on ``wgmma``, the CUDA-core kernel.
+        Bound: q, k, v read once and the output written once (bf16), and
+        the two products (QK^T and PV, 2 FLOPs per multiply-add) over the
+        (query, key) pairs the mask keeps, at the bf16 tensor-core peak.
+        A causal row has Sq = Skv."""
+        q = normal(b_, sq, h, d_, dtype=torch.bfloat16)
+        k, v = (normal(b_, skv, h, d_, dtype=torch.bfloat16)
+                for _ in range(2))
+        before = kernels.LAUNCHES["flash_attention_wgmma"]
+        got = flash_attention(q, k, v, causal=causal)
+        err = float_err(torch, got,
+                        flash_attention_plain(q, k, v, causal=causal), 2e-2,
+                        f"flash_attention ({what})")
+        took = ("wgmma" if kernels.LAUNCHES["flash_attention_wgmma"] > before
+                else "simt")
+        if took != route:
+            fail(f"flash_attention ({what}): took the {took} route, "
+                 f"expected {route}")
+        qt, kt_, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt_, vt,
+                                                  is_causal=causal)
+        backend, backend_kernel = sdpa_backend(torch, sdpa)
+        sdpa_err = float((sdpa().transpose(1, 2).float() - got.float())
+                         .abs().max())
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        row = {
+            "shape": [b_, sq, skv, h, h, d_], "dtype": "bfloat16",
+            "causal": causal, "route": took, "max_abs_err": err,
+            "tolerance": 2e-2, "pairs": pairs,
+            "kernel_ms": time_ms(
+                torch, lambda: flash_attention(q, k, v, causal=causal),
+                reps),
+            "plain_ms": time_ms(
+                torch, lambda: flash_attention_plain(q, k, v, causal=causal),
+                reps),
+            "library_ms": time_ms(torch, sdpa, reps),
+            "library_call": f"F.scaled_dot_product_attention(is_causal="
+                            f"{causal})",
+            "sdpa_backend": backend, "sdpa_kernel": backend_kernel,
+            "sdpa_max_abs_err": sdpa_err,
+            "bound": bound_ms(2 * 2 * b_ * (sq + skv) * h * d_,
+                              4 * b_ * h * d_ * pairs, BF16_OPS_PER_S)}
+        if took == "wgmma":
+            row["simt_ms"] = time_ms(
+                torch, lambda: launch_route("simt", q, k, v, causal=causal),
+                reps)
+        return row
 
     # flash_attention: yi-6b's prefill, B=2, S=2048, Hq=32, Hkv=4, hd=128,
     # bf16, causal, on the tensor-core route; 2e-2 absolute in bf16
@@ -820,46 +896,16 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
 
     # flash_attention at moonshot-v1-16b-a3b's prefill: B=2, S=2048, 16
     # query heads over 16 kv heads (MHA, a group of 1), hd 128, bf16,
-    # causal, on the tensor-core route (2e-2 as the bf16 cases)
+    # causal, on the tensor-core route
     del q, k, v, qt, kt_, vt
-    B, S, Hq, Hkv, hd = 2, 2048, 16, 16, 128
-    q, k, v = (normal(B, S, Hq, hd, dtype=torch.bfloat16) for _ in range(3))
-    before = kernels.LAUNCHES["flash_attention_wgmma"]
-    err = float_err(torch, flash_attention(q, k, v, causal=True),
-                    flash_attention_plain(q, k, v, causal=True), 2e-2,
-                    "flash_attention (moonshot prefill)")
-    if kernels.LAUNCHES["flash_attention_wgmma"] != before + 1:
-        fail("flash_attention (moonshot prefill) did not take the wgmma "
-             "route")
-    qt, kt_, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
-    backend, backend_kernel = sdpa_backend(torch, sdpa)
-    band = S * (S + 1) // 2
-    out["flash_attention@mha"] = {
-        "shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16", "causal": True,
-        "route": "wgmma", "max_abs_err": err, "tolerance": 2e-2,
-        "kernel_ms": time_ms(
-            torch, lambda: flash_attention(q, k, v, causal=True), reps),
-        "simt_ms": time_ms(
-            torch, lambda: launch_route("simt", q, k, v, causal=True), reps),
-        "plain_ms": time_ms(
-            torch, lambda: flash_attention_plain(q, k, v, causal=True), reps),
-        "library_ms": time_ms(torch, sdpa, reps),
-        "library_call": "F.scaled_dot_product_attention(is_causal=True)",
-        "sdpa_backend": backend, "sdpa_kernel": backend_kernel,
-        # bytes: q, k, v read once, out written once (bf16); operations:
-        # the causal band's two products, at the bf16 tensor-core peak
-        "bound": bound_ms(2 * 4 * B * S * Hq * hd, 4 * B * Hq * hd * band,
-                          BF16_OPS_PER_S)}
+    out["flash_attention@mha"] = attention_row(
+        2, 2048, 2048, 16, 128, True, "wgmma", "moonshot prefill")
 
     # flash_attention at head dim 256: recurrentgemma-9b's prefill, B=2,
     # S=4096, Hq=16 over Hkv=1, causal, window 2048, bf16, on the
     # tensor-core route (2e-2 as the bf16 cases); fp16 at that shape
     # (4e-3) on the same route; the same in float32 (1e-5) and a ragged
     # Sq != Skv case at head dim 192, both dtypes, on the CUDA-core one
-    del q, k, v, qt, kt_, vt
     B, S, Hq, Hkv, hd, W = 2, 4096, 16, 1, 256, 2048
     q = normal(B, S, Hq, hd, dtype=torch.bfloat16)
     k, v = (normal(B, S, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
@@ -922,6 +968,33 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         "bound": bound_ms(2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd),
                           4 * B * Hq * hd * band, BF16_OPS_PER_S)}
     del q, k, v, qt, kt_, vt, band_mask
+
+    # flash_attention at whisper-tiny's shapes: 16 clips, 6/6 heads at hd
+    # 64, non-causal, on the tensor-core route: the encoder over 1500
+    # frames, and the decoder's cross-attention from a 432-token prompt
+    # onto them (``cross``); the encoder's in float32 on the CUDA-core one
+    # (1e-5)
+    enc = attention_row(16, 1500, 1500, 6, 64, False, "wgmma",
+                        "whisper encoder")
+    cross = attention_row(16, 432, 1500, 6, 64, False, "wgmma",
+                          "whisper cross-attention")
+    cross["bound_ms"], cross["bound_by"] = cross.pop("bound")
+    side = [attention_case(16, 1500, 1500, 6, 6, 64, 0, torch.float32, 1e-5,
+                           "simt", causal=False)]
+    out["flash_attention@encdec"] = {**enc, "cross": cross,
+                                     "side_cases": side}
+
+    # flash_attention at head dim 96: phi-3-vision-4.2b's prefill, 2 rows
+    # of 576 patches and 1472 tokens, 32/32 heads, causal, on the
+    # CUDA-core route (the time a tensor-core kernel at hd 96 must beat);
+    # a ragged non-causal case at its head layout in bf16 and float32
+    out["flash_attention@hd96"] = {
+        **attention_row(2, 2048, 2048, 32, 96, True, "simt",
+                        "phi-3-vision prefill, hd 96"),
+        "side_cases": [attention_case(2, 77, 300, 32, 32, 96, 0, dt, tol,
+                                      "simt", causal=False)
+                       for dt, tol in ((torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5))]}
 
     # ssd_intra: mamba2-1.3b's prefill, b=2, nc=8, Q=256, nh=64, hp=64,
     # N=128, float32; 1e-4 of max|y| and of max|state| (sums over Q and N
@@ -1984,37 +2057,97 @@ def sharded_phase(torch, oracle: dict, seed: int, sizes: dict,
     return launches
 
 
-# (config, its kernel's row in the kernels line, the launch counts each of
-# its forwards raises once per attention or SSD layer, prompt tokens,
-# whether its weights take the 16-bit store) of the LM phase.  Every
-# attention at head dim 128 or 256 must take the tensor-core route.
-# 2048 tokens put yi's and moonshot's attention on the kernel's branch
-# (> 1024) and give mamba2 8 chunks of 256; recurrentgemma's 4096 pass
-# its 2048-key window, so the kernel's window mask and kv-tile skip run
-# in prefill, the prefill cache takes the full-ring branch and every
-# decode step overwrites a live slot.  moonshot's 28.1 B parameters are
-# 112.2 GB in the float32 store, past the card; the 16-bit store holds
-# the leaves the forward casts (56.1 GB) and computes the same bits
+# prompts (of most models) and greedy decode steps
+LM_BATCH, LM_STEPS = 2, 16
+# (config, its kernel's row in the kernels line, the launch counts its
+# forwards raise, prompt tokens, whether its weights take the 16-bit
+# store, prompts) of the LM phase.  Every attention at head dim 64, 128
+# or 256 must take the tensor-core route, phi-3-vision's at 96 the
+# CUDA-core one.  2048 tokens put yi's and moonshot's attention on the
+# kernel's branch (> 1024) and give mamba2 8 chunks of 256;
+# recurrentgemma's 4096 pass its 2048-key window, so the kernel's window
+# mask and kv-tile skip run in prefill, the prefill cache takes the
+# full-ring branch and every decode step overwrites a live slot.
+# moonshot's 28.1 B parameters are 112.2 GB in the float32 store, past
+# the card; the 16-bit store holds the leaves the forward casts (56.1
+# GB) and computes the same bits.  whisper-tiny serves 16 clips of 1500
+# encoder frames behind 432-token prompts, so 16 steps end at its
+# 448-token text context: its encoder (1500 frames, non-causal) and its
+# cross-attention (432 rows over 1500 frames) take the kernel, its
+# decoder's self-attention (433 positions at most) the materialized
+# branch.  phi-3-vision-4.2b puts 576 patch embeddings before 1472 text
+# tokens: 2048 positions take the kernel's branch
 LM_MODELS = [
     ("yi-6b", "flash_attention", ("flash_attention", "flash_attention_wgmma"),
-     2048, False),
-    ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048, False),
+     2048, False, LM_BATCH),
+    ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048, False, LM_BATCH),
     ("recurrentgemma-9b", "flash_attention@hd256",
-     ("flash_attention", "flash_attention_wgmma"), 4096, False),
+     ("flash_attention", "flash_attention_wgmma"), 4096, False, LM_BATCH),
     ("moonshot-v1-16b-a3b", "flash_attention@mha",
-     ("flash_attention", "flash_attention_wgmma"), 2048, True)]
+     ("flash_attention", "flash_attention_wgmma"), 2048, True, LM_BATCH),
+    ("whisper-tiny", "flash_attention@encdec",
+     ("flash_attention", "flash_attention_wgmma"), 432, False, 16),
+    ("phi-3-vision-4.2b", "flash_attention@hd96", ("flash_attention",), 1472,
+     False, LM_BATCH)]
 LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
-# the block kinds whose forward launches an LM kernel once (RG-LRU blocks
+# the kernel rows ``lm_kernel_rows`` builds with its ``attention_row``
+ATTENTION_ROWS = ("flash_attention@mha", "flash_attention@encdec",
+                  "flash_attention@hd96")
+# the block kinds whose forward launches an LM kernel (RG-LRU blocks
 # launch none: their scan is plain PyTorch, as the reference's is XLA;
 # a MoE block launches attention, and its dispatch is stock torch ops, as
 # the reference's is XLA)
 KERNEL_KINDS = ("attn", "local", "ssm", "moe")
-# prompts and greedy decode steps
-LM_BATCH, LM_STEPS = 2, 16
 
 
-def lm_phase(torch, seed: int, batch: int, steps: int,
-             models=LM_MODELS) -> dict:
+def kernel_layers(cfg) -> int:
+    """Layers whose forward launches an LM kernel once at the LM phase's
+    shapes, from the config alone: every attention, local-attention, MoE
+    and SSD block; for the enc-dec family each encoder layer (over its
+    1500 frames) and each decoder layer's cross-attention onto them (its
+    decoder's self-attention, at most 433 positions, materializes)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers
+    return sum(k.value in KERNEL_KINDS for k in cfg.block_kinds())
+
+
+def lm_inputs(torch, cfg, seed: int, batch: int) -> dict:
+    """What a family's prefill takes besides its tokens, drawn from
+    ``seed`` with numpy at the reference test's 0.02 scale, float32 on
+    the card: the enc-dec family's encoder frames [B, enc_seq, d], the
+    VLM's patch embeddings [B, n_patches, d]; nothing for the others."""
+    import numpy as np
+
+    name, n = {"encdec": ("frames", cfg.enc_seq),
+               "vlm": ("patches", cfg.n_patches)}.get(cfg.family, ("", 0))
+    if not name:
+        return {}
+    r = np.random.RandomState(seed + 2)
+    return {name: torch.tensor((r.randn(batch, n, cfg.d_model) * 0.02)
+                               .astype(np.float32), device="cuda")}
+
+
+def prefix_len(extra: dict) -> int:
+    """Positions in front of the tokens: the VLM's patches."""
+    return extra["patches"].shape[1] if "patches" in extra else 0
+
+
+def check_logits(torch, model, params, ext, at: int, extra: dict):
+    """Logits of the sequence form of the forward over ``ext`` at token
+    ``at``: ``encode`` feeding ``_decoder_hidden`` for the enc-dec family,
+    else ``hidden()``, behind the VLM's patches, which shift the
+    position."""
+    with torch.no_grad():
+        if "frames" in extra:
+            h, _ = model._decoder_hidden(params, ext,
+                                         model.encode(params,
+                                                      extra["frames"]))
+        else:
+            h, _ = model.hidden(params, ext, **extra)
+        return model._logits(params, h[:, prefix_len(extra) + at, :])
+
+
+def lm_phase(torch, seed: int, steps: int, models=LM_MODELS) -> dict:
     """Greedy serving of each LM at full width; returns, for each LM
     kernel row, its launches over its model's run and their routes."""
     import numpy as np
@@ -2027,7 +2160,7 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
     from repro_torch.models.params import store_spec
 
     launches = {}
-    for arch, row, own, seq, sixteen in models:
+    for arch, row, own, seq, sixteen, batch in models:
         cfg = get_config(arch)
         store = cfg.dtype if sixteen else None
         model = build_model(cfg)
@@ -2043,20 +2176,27 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
                           "head_dim": cfg.head_dim, "window": cfg.window,
                           "experts": [cfg.n_experts, cfg.top_k],
                           "capacity_factor": cfg.capacity_factor,
+                          "enc_layers": cfg.n_enc_layers,
                           "dtype": cfg.dtype,
                           "store": store or "float32",
                           "params": param_count(spec),
+                          # ArchConfig.param_count(): whisper's leaves out
+                          # its biases, norm offsets and pad rows
+                          "params_analytic": cfg.param_count(),
                           "param_gb": param_bytes(store_spec(spec, store))
                           / 1e9,
                           "param_gb_float32_store": param_bytes(spec) / 1e9,
                           "init_s": time.perf_counter() - t0}), flush=True)
         prompts = torch.tensor(np.random.RandomState(seed).randint(
             0, cfg.vocab, (batch, seq)).astype(np.int32), device="cuda")
+        extra = lm_inputs(torch, cfg, seed, batch)
+        pre = prefix_len(extra)
         torch.cuda.reset_peak_memory_stats()
         moe.reset_dropped()
         kernels.reset_counts()  # the main path's run starts here
         t0 = time.perf_counter()
-        logits, cache = model.prefill_fn(params, prompts, seq + steps)
+        logits, cache = model.prefill_fn(params, prompts, pre + seq + steps,
+                                         **extra)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dropped = {"prefill": moe.dropped_pairs()}
@@ -2074,13 +2214,11 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
         t2 = time.perf_counter()
         dropped["decode_steps"] = moe.dropped_pairs()
         moe.reset_dropped()
-        # consistency: hidden() over the prompt and the first greedy
-        # token, against the first decode step's logits
+        # consistency: the sequence form over the prompt and the first
+        # greedy token, against the first decode step's logits
         ext = torch.cat([prompts, logits.argmax(-1)[:, None].to(
             prompts.dtype)], dim=1)
-        with torch.no_grad():
-            h, _ = model.hidden(params, ext)
-            ref = model._logits(params, h[:, seq, :])
+        ref = check_logits(torch, model, params, ext, seq, extra)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         counts = kernels.counts()["launches"]  # ... and ends here
@@ -2091,7 +2229,7 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
                 "scale": float(ref.float().abs().max()), "ref": ref.float(),
                 "dropped": dropped["prefill"] + dropped["check"]}
         del cache
-        gated = gated_consistency(torch, cfg, params, ext, seq, pair)
+        gated = gated_consistency(torch, cfg, params, ext, seq, pair, extra)
         g16, g32 = gated["bfloat16"], gated["float32"]
         err, err32 = g16["err"], g32["err"]
         bound = 3e-2 * max(1.0, g16["scale"])
@@ -2106,6 +2244,7 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
                       and torch.isfinite(first).all())
         line = {
             "lm": arch, "batch": batch, "prompt": seq, "decode_steps": steps,
+            "inputs": {k: list(v.shape) for k, v in extra.items()},
             "prefill_s": t1 - t0,
             "decode_ms_per_token": (t2 - t1) / steps * 1e3,
             "decode_ms_first": step_ms[0],
@@ -2141,24 +2280,24 @@ def lm_phase(torch, seed: int, batch: int, steps: int,
         if err > bound or err32 > bound32:
             fail(f"{arch}: decode logits differ from the forward by {err} "
                  f"(bound {bound}; float32: {err32}, bound {bound32})")
-        if lens != [seq + steps] * batch:
+        if lens != [pre + seq + steps] * batch:
             fail(f"{arch}: cache lens {lens}")
         if peak_gb >= 80:
             fail(f"{arch}: peak device memory {peak_gb} GB, past one card")
-        # two forwards ran (the prefill and the check), each launching the
-        # model's kernel once per attention or SSD layer
-        n = sum(k.value in KERNEL_KINDS for k in cfg.block_kinds())
-        want = {k: (2 * n if k in own else 0) for k in LM_COUNTS}
+        # two forwards ran (the prefill and the check), each launching
+        # the model's kernel once per kernel layer
+        n = 2 * kernel_layers(cfg)
+        want = {k: (n if k in own else 0) for k in LM_COUNTS}
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"{arch}: LM kernel launches {got}, expected {want}")
         tc = counts["flash_attention_wgmma"]
         launches[row] = {"launches": counts[own[0]], "routes": {
             "wgmma": tc, "simt": counts["flash_attention"] - tc}}
-        del logits, first, step, h, ref
-        lm_prefill_profile(torch, arch, model, params, prompts)
-        lm_profile(torch, arch, model, params, prompts)
-        del params, model
+        del logits, first, step, ref
+        lm_prefill_profile(torch, arch, model, params, prompts, extra)
+        lm_profile(torch, arch, model, params, prompts, extra)
+        del params, model, extra
         torch.cuda.empty_cache()
     return launches
 
@@ -2172,9 +2311,10 @@ def seed_conv_taps(torch, params, seed: int) -> None:
     block of a fresh model output exactly 0 and every RG-LRU block's
     conv output its bias alone (0): the block would carry no signal and
     the consistency check would prove nothing.  A dense or MoE model has
-    no such block and is left as it is."""
+    no such block and is left as it is, as is an enc-dec or VLM one."""
     gen = None
-    for blk in (*(params["blocks"][g] for g in sorted(params["blocks"])),
+    groups = params.get("blocks", {})  # the enc-dec tree has none
+    for blk in (*(groups[g] for g in sorted(groups)),
                 *params.get("tail", [])):
         for kind in ("ssm", "rglru"):
             if kind not in blk:
@@ -2227,10 +2367,11 @@ class RouteProbe:
         return p
 
 
-def consistency_pair(torch, cfg, params, ext, seq: int,
-                     pin: bool = False) -> dict:
-    """Decode after a prefill of ``seq`` tokens against ``hidden()`` over
-    ``seq + 1``, in ``cfg.dtype`` on the given weights (``cfg.dtype``
+def consistency_pair(torch, cfg, params, ext, seq: int, pin: bool = False,
+                     extra: dict | None = None) -> dict:
+    """Decode after a prefill of ``seq`` tokens against the sequence form
+    over ``seq + 1`` (``check_logits``; both take ``extra``, the frames
+    or patches), in ``cfg.dtype`` on the given weights (``cfg.dtype``
     only sets the compute type).  Returns the max abs error ``err``, the
     forward's max |logit| ``scale`` and float32 logits at position
     ``seq`` (``ref``), the MoE pairs the three forwards dropped, and the
@@ -2241,23 +2382,26 @@ def consistency_pair(torch, cfg, params, ext, seq: int,
 
     model = build_model(cfg)
     B = ext.shape[0]
-    rows = [b * (seq + 1) + seq for b in range(B)]
+    extra = extra or {}
+    pre = prefix_len(extra)
+    rows = [b * (pre + seq + 1) + pre + seq for b in range(B)]
     moe.reset_dropped()
     with torch.no_grad(), RouteProbe(torch, moe, cfg.top_k, rows,
                                      pin) as probe:
-        _, cache = model.prefill_fn(params, ext[:, :seq], seq + 1)
+        _, cache = model.prefill_fn(params, ext[:, :seq], pre + seq + 1,
+                                    **extra)
         probe.mode = "decode"
         step = model.decode_fn(params, ext[:, seq], cache)[0]
         del cache
         probe.mode, probe.layer = "check", 0
-        h, _ = model.hidden(params, ext)
-        ref = model._logits(params, h[:, seq, :]).float()
+        ref = check_logits(torch, model, params, ext, seq, extra).float()
     return {"err": float((step.float() - ref).abs().max()),
             "scale": float(ref.abs().max()), "ref": ref,
             "dropped": moe.dropped_pairs(), "flips": probe.flips}
 
 
-def gated_consistency(torch, cfg, params, ext, seq: int, pair) -> dict:
+def gated_consistency(torch, cfg, params, ext, seq: int, pair,
+                      extra: dict) -> dict:
     """The consistency check in bf16 (``pair``: the served run's first
     decode step against its check forward) and again with the same
     weights in float32, where the two differ by reassociation only, so a
@@ -2280,7 +2424,7 @@ def gated_consistency(torch, cfg, params, ext, seq: int, pair) -> dict:
     import dataclasses
 
     f32 = consistency_pair(torch, dataclasses.replace(cfg, dtype="float32"),
-                           params, ext, seq)
+                           params, ext, seq, extra=extra)
     out = {"bfloat16": pair, "float32": f32}
     if cfg.family != "moe":
         return out
@@ -2296,11 +2440,12 @@ def gated_consistency(torch, cfg, params, ext, seq: int, pair) -> dict:
                                    / cfg.top_k)
         out["float32"] = consistency_pair(
             torch, dataclasses.replace(gate, dtype="float32"), params, ext,
-            seq)
+            seq, extra=extra)
     out["capacity_factor"] = gate.capacity_factor
-    out["bfloat16_free"] = consistency_pair(torch, gate, params, ext, seq)
+    out["bfloat16_free"] = consistency_pair(torch, gate, params, ext, seq,
+                                            extra=extra)
     out["bfloat16"] = consistency_pair(torch, gate, params, ext, seq,
-                                       pin=True)
+                                       pin=True, extra=extra)
     for name in ("bfloat16", "bfloat16_free", "float32"):
         if out[name]["dropped"]:
             fail(f"{cfg.name}: {out[name]['dropped']} pairs dropped at "
@@ -2308,16 +2453,18 @@ def gated_consistency(torch, cfg, params, ext, seq: int, pair) -> dict:
     return out
 
 
-def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
+def lm_profile(torch, arch: str, model, params, prompts, extra: dict,
+               steps: int = 4):
     """Device time of ``steps`` decode steps under ``torch.profiler``,
-    against a fresh prefill of the prompts' first 256 tokens (outside
-    the window): the device busy share of a decode step and its top
-    kernels.  The profiler's overhead lengthens ``wall_s``, so
-    ``idle_share`` is an upper bound."""
+    against a fresh prefill of the prompts' first 256 tokens (behind
+    ``extra``'s frames or patches; outside the window): the device busy
+    share of a decode step and its top kernels.  The profiler's overhead
+    lengthens ``wall_s``, so ``idle_share`` is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     short = prompts[:, :256]
-    logits, cache = model.prefill_fn(params, short, short.shape[1] + steps)
+    logits, cache = model.prefill_fn(
+        params, short, prefix_len(extra) + short.shape[1] + steps, **extra)
     tok = logits.argmax(-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2340,12 +2487,14 @@ def lm_profile(torch, arch: str, model, params, prompts, steps: int = 4):
                                for k, (us, c) in top]}), flush=True)
 
 
-def lm_prefill_profile(torch, arch: str, model, params, prompts):
-    """One more prefill of the prompts under ``torch.profiler``: the
-    device busy share and top kernels, the attention kernels' device
-    time (``flash_kernel``/``flash_tc``), and for a model with RG-LRU
-    blocks one layer's linear scan at the prefill's shape timed apart
-    (CUDA events) and its share of the prefill over all such layers."""
+def lm_prefill_profile(torch, arch: str, model, params, prompts,
+                       extra: dict):
+    """One more prefill of the prompts (and ``extra``) under
+    ``torch.profiler``: the device busy share and top kernels, the
+    attention kernels' device time (``flash_kernel``/``flash_tc``) and
+    its share of the busy time, and for a model with RG-LRU blocks one
+    layer's linear scan at the prefill's shape timed apart (CUDA events)
+    and its share of the prefill over all such layers."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import rglru
@@ -2355,7 +2504,8 @@ def lm_prefill_profile(torch, arch: str, model, params, prompts):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill_fn(params, prompts, seq + 1)
+        model.prefill_fn(params, prompts, prefix_len(extra) + seq + 1,
+                         **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per = device_events(prof)
@@ -2366,6 +2516,8 @@ def lm_prefill_profile(torch, arch: str, model, params, prompts):
             "device_busy_s": busy if busy else "not measured",
             "idle_share": 1 - busy / wall if busy else "not measured",
             "attention_device_ms": attn if busy else "not measured",
+            "attention_share_of_busy": (attn / (busy * 1e3) if busy
+                                        else "not measured"),
             "top_device_kernels": [{"name": k[:80], "ms": us / 1e3,
                                     "calls": c} for k, (us, c) in top]}
     cfg = model.cfg
@@ -2416,6 +2568,19 @@ KERNELS = [
      "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
      "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                  "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
+    # the same wrapper at whisper-tiny's non-causal attention (6/6 heads,
+    # hd 64): the encoder over 1500 frames, and the decoder's cross-
+    # attention onto them (``cross``); its launches are whisper's
+    {"name": "flash_attention@encdec", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+     "sources": {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                 "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
+    # the same wrapper at head dim 96 (phi-3-vision-4.2b), which takes the
+    # CUDA-core kernel; its launches are phi-3-vision's
+    {"name": "flash_attention@hd96", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
      "replaces": "src/repro/kernels/flash_attention/flash_attention.py:92"},
     {"name": "ssd_intra", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
@@ -2483,7 +2648,10 @@ def main() -> int:
         group: {k: dict(sorted(v.items())) for k, v in per.items()}
         for group, per in sizes.items()},
         "path_merge_shapes": sorted(set(shapes))}), flush=True)
-    lm = lm_phase(torch, args.seed, LM_BATCH, LM_STEPS)
+    lm = lm_phase(torch, args.seed, LM_STEPS)
+    for row, v in lm.items():
+        if v["launches"] <= 0:
+            fail(f"kernel row {row} never launched in the LM phase")
     launches.update({row: v["launches"] for row, v in lm.items()})
     rows = kernel_phase(torch, args.seed, args.reps, sorted(set(shapes)),
                         sizes)
@@ -2495,10 +2663,6 @@ def main() -> int:
         if k["name"] == "flash_attention":  # launches by route, and the
             extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core time
                      "simt_ms": r["simt_ms"]}
-        elif k["name"] == "flash_attention@mha":  # launches by route,
-            extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core, SDPA
-                     "simt_ms": r["simt_ms"],
-                     "sdpa_backend": r["sdpa_backend"]}
         elif k["name"] == "flash_attention@hd256":  # launches by route,
             extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core, SDPA
                      "simt_ms": r["simt_ms"],
@@ -2506,6 +2670,13 @@ def main() -> int:
                      "sdpa_backend": r["sdpa_backend"],
                      "sdpa_max_abs_err": r["sdpa_max_abs_err"],
                      "window": r["window"]}
+        elif k["name"] in ATTENTION_ROWS:  # launches by route, SDPA, the
+            extra = {"routes": lm[k["name"]]["routes"],  # CUDA-core time
+                     "sdpa_ms": r["library_ms"],  # on wgmma, whisper's
+                     "sdpa_backend": r["sdpa_backend"],  # cross-attention
+                     "sdpa_max_abs_err": r["sdpa_max_abs_err"],
+                     **{key: r[key] for key in ("simt_ms", "cross")
+                        if key in r}}
         elif k["name"] == "merge_ranks":  # the two launches apart
             extra = {"left_ms": r["left_ms"], "right_ms": r["right_ms"]}
         elif k["name"] == "ssd_intra":  # the gram pass, the old yardstick

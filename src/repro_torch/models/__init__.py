@@ -1,6 +1,7 @@
-"""LM substrate of the port: configs, layers, and the dense, MoE, SSM
-and hybrid (RG-LRU + local attention) decoder families (the serving
-path; ROADMAP A11 lists what waits)."""
+"""LM substrate of the port: configs, layers, and every family's serving
+path: the dense, MoE, SSM, hybrid (RG-LRU + local attention) and VLM
+decoders (``models/transformer.py``) and the enc-dec model
+(``models/encdec.py``); ROADMAP A11 lists what waits."""
 
 from repro_torch.models.config import (ArchConfig, BlockKind, SHAPES,
                                        ShapeConfig, applicable_shapes)

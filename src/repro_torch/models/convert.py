@@ -12,9 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.model_api import build_model
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        is_leaf_spec, store_spec, tree_map)
-from repro_torch.models.transformer import model_spec
 
 
 def _leaf(spec: LeafSpec, stored: LeafSpec, arr, dev) -> torch.Tensor:
@@ -33,10 +33,10 @@ def params_from_reference(tree, cfg: ArchConfig, device="cuda",
     for ``cfg`` on ``device``, stored as ``store_spec(spec, store)`` says
     (``store=cfg.dtype``: the leaves read through a cast held in the
     compute type).  Raises when the tree's layout, a leaf's shape or a
-    leaf's dtype differs from the port's ``model_spec``, whose dtypes
-    are the reference's."""
+    leaf's dtype differs from the spec of the family's model
+    (``build_model(cfg).spec()``), whose dtypes are the reference's."""
     dev = check_device(device)
-    spec = model_spec(cfg)
+    spec = build_model(cfg, dev).spec()
 
     def check_keys(s, t, path="params"):
         if isinstance(s, dict):

@@ -1,0 +1,226 @@
+"""Encoder-decoder LM (whisper-tiny backbone): the serving path.
+
+Port of the reference ``models/encdec.py``.  The audio frontend (log-mel
+and two convolutions) is a stub there and here: ``frames`` are
+precomputed frame embeddings [B, enc_seq, d].  Encoder: non-causal
+self-attention and a GELU MLP (layernorm, biased projections).
+Decoder: causal self-attention, cross-attention to the encoder output
+and a GELU MLP.  Positions are sinusoidal on both sides (the reference
+replaces whisper's learned decoder positions with the same table).
+The output head is the embedding, transposed.
+
+Entry points: ``encode``, ``prefill_fn(params, tokens, max_len,
+frames)`` (last-position logits and a decode cache sized ``max_len``)
+and ``decode_fn``.  The cache holds each decoder layer's self-attention
+K/V (``k``, ``v``: a row per decoded token) and its cross-attention K/V
+of the encoder output (``xk``, ``xv``: computed once by the prefill,
+static after), stacked over layers, beside ``lens``.  The param and
+cache trees keep the reference's layout.
+
+In place: ``decode_fn`` writes each layer's new K/V row into the cache
+it is given and returns that cache with ``lens`` advanced.  No remat:
+serving keeps no activations for a backward pass.  The training entry
+point ``loss_fn`` raises ``NotImplementedError`` (ROADMAP A11.4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ArchConfig, BlockKind
+from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
+                                       attention_spec, decode_attention,
+                                       dense, layernorm_spec, mlp_spec,
+                                       sinusoidal_rows, sinusoidal_table)
+from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
+                                       normal, stacked, tree_map)
+from repro_torch.models.transformer import (_attn_cache_from_prefill,
+                                            _attn_part, _embed_tokens,
+                                            _layer, attn_decode)
+
+# ---------------------------------------------------------------------------
+# Specs
+
+
+def _norm(cfg):
+    return layernorm_spec(cfg.d_model)
+
+
+def _enc_block_spec(cfg):
+    return {"ln1": _norm(cfg), "attn": attention_spec(cfg),
+            "ln2": _norm(cfg), "mlp": mlp_spec(cfg)}
+
+
+def _dec_block_spec(cfg):
+    return {"ln1": _norm(cfg), "attn": attention_spec(cfg),
+            "lnx": _norm(cfg), "xattn": attention_spec(cfg),
+            "ln2": _norm(cfg), "mlp": mlp_spec(cfg)}
+
+
+def encdec_spec(cfg: ArchConfig) -> dict:
+    return {
+        "embed": normal((cfg.padded_vocab(), cfg.d_model), ("vocab", "embed"),
+                        scale=0.02, cast=True),
+        "enc_blocks": stacked(cfg.n_enc_layers, _enc_block_spec(cfg)),
+        "enc_norm": _norm(cfg),
+        "dec_blocks": stacked(cfg.n_layers, _dec_block_spec(cfg)),
+        "final_norm": _norm(cfg),
+    }  # whisper ties the output head to the embedding
+
+
+def encdec_cache_spec(cfg: ArchConfig, B: int, max_len: int) -> dict:
+    dt = cfg.dtype
+    kv = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    xkv = (B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+    per_layer = {
+        "k": LeafSpec(kv, ("batch", "cache_seq", None, None), "zeros",
+                      dtype=dt),
+        "v": LeafSpec(kv, ("batch", "cache_seq", None, None), "zeros",
+                      dtype=dt),
+        "xk": LeafSpec(xkv, ("batch", None, None, None), "zeros", dtype=dt),
+        "xv": LeafSpec(xkv, ("batch", None, None, None), "zeros", dtype=dt),
+    }
+    return {"layers": stacked(cfg.n_layers, per_layer),
+            "lens": LeafSpec((B,), ("batch",), "zeros", dtype="int32")}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+
+
+# whisper's positions are sinusoidal (``cfg.pos``), added to the
+# embeddings: the self-attention's ``project_qkv`` applies no RoPE and
+# reads no positions (the reference passes ``rope_on=False``)
+
+
+def _add_positions(h: torch.Tensor) -> torch.Tensor:
+    return h + sinusoidal_table(h.shape[1], h.shape[-1], h.device).to(
+        h.dtype)
+
+
+def _xattn(p, h, xk, xv, cfg):
+    """Cross-attention with precomputed K/V from the encoder output."""
+    x = apply_norm(p["lnx"], h, cfg.norm)
+    B, S, _ = x.shape
+    q = dense(p["xattn"]["q"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    a = attention(q, xk, xv, cfg, causal=False)
+    return h + dense(p["xattn"]["o"], a.reshape(B, S, -1))
+
+
+def _enc_kv(p, enc_out, cfg):
+    B, Se, _ = enc_out.shape
+    k = dense(p["xattn"]["k"], enc_out).reshape(B, Se, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    v = dense(p["xattn"]["v"], enc_out).reshape(B, Se, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    return k, v
+
+
+def _mlp_part(p, h, cfg):
+    return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg.norm), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Public model API
+
+
+class EncDecLM:
+    """Encoder-decoder model (pure-function methods over a params tree).
+
+    ``device`` (default ``"cuda"``) is where its params live; the model
+    raises at construction when that is CUDA and torch sees no card."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = check_device(device)
+
+    def spec(self) -> dict:
+        return encdec_spec(self.cfg)
+
+    def head_w(self, params):
+        return params["embed"].T
+
+    def _logits(self, params, h):
+        """h [B,d] -> logits [B,vocab] in h's dtype."""
+        return (h @ self.head_w(params).to(h.dtype))[:, : self.cfg.vocab]
+
+    # -- encoder -------------------------------------------------------------
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B,enc_seq,d] -> encoder output [B,enc_seq,d]."""
+        cfg = self.cfg
+        h = _add_positions(frames.to(DTYPES[cfg.dtype]))
+        for i in range(cfg.n_enc_layers):
+            bp = _layer(params["enc_blocks"], i)
+            h, _ = _attn_part(bp, h, cfg, None, causal=False)
+            h = _mlp_part(bp, h, cfg)
+        return apply_norm(params["enc_norm"], h, cfg.norm)
+
+    # -- decoder (sequence form) -----------------------------------------------
+    def _decoder_hidden(self, params, tokens, enc_out,
+                        collect_cache: bool = False, max_len: int = 0):
+        """tokens [B,S] against ``enc_out`` -> (h [B,S,d] after the final
+        norm, the stacked cache layers | None)."""
+        cfg = self.cfg
+        h = _add_positions(_embed_tokens(params, tokens, cfg))
+        caches = []
+        for i in range(cfg.n_layers):
+            bp = _layer(params["dec_blocks"], i)
+            h, (k, v) = _attn_part(bp, h, cfg, None)
+            xk, xv = _enc_kv(bp, enc_out, cfg)
+            h = _mlp_part(bp, _xattn(bp, h, xk, xv, cfg), cfg)
+            if collect_cache:
+                caches.append({**_attn_cache_from_prefill(
+                    k, v, BlockKind.ATTN, cfg, max_len), "xk": xk,
+                    "xv": xv})
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        if not collect_cache:
+            return h, None
+        return h, tree_map(lambda *xs: torch.stack(xs), caches[0],
+                           *caches[1:])
+
+    # -- serving ---------------------------------------------------------------
+    def loss_fn(self, params, batch):
+        raise NotImplementedError("training (loss_fn, chunked_ce) is not "
+                                  "ported yet (ROADMAP A11.4)")
+
+    @torch.no_grad()
+    def prefill_fn(self, params, tokens, max_len: int, frames):
+        """Encode ``frames`` and run the decoder over ``tokens`` ->
+        (last-position logits [B,V], cache)."""
+        enc_out = self.encode(params, frames)
+        h, layers = self._decoder_hidden(params, tokens, enc_out,
+                                         collect_cache=True,
+                                         max_len=max_len)
+        lens = torch.full((tokens.shape[0],), tokens.shape[1],
+                          dtype=torch.int32, device=h.device)
+        return self._logits(params, h[:, -1, :]), {"layers": layers,
+                                                   "lens": lens}
+
+    @torch.no_grad()
+    def decode_fn(self, params, tok: torch.Tensor, cache: dict):
+        """tok [B] int -> (logits [B,V], cache'); writes each layer's K/V
+        row at ``lens`` into ``cache`` in place and returns it with
+        ``lens`` advanced.  The sinusoidal row is computed at the device
+        tensor ``lens``: no host sync."""
+        cfg = self.cfg
+        lens = cache["lens"]
+        h = _embed_tokens(params, tok[:, None], cfg)
+        h = h + sinusoidal_rows(lens, h.shape[-1])[:, None, :].to(h.dtype)
+        B = h.shape[0]
+        # every encoder frame is valid for the cross-attention
+        every = torch.ones(cache["layers"]["xk"].shape[1:3],
+                           dtype=torch.bool, device=h.device)
+        for i in range(cfg.n_layers):
+            bp = _layer(params["dec_blocks"], i)
+            c = _layer(cache["layers"], i)
+            h = attn_decode(bp, h, BlockKind.ATTN, cfg, c, lens)
+            # cross-attention against the static encoder K/V
+            x = apply_norm(bp["lnx"], h, cfg.norm)
+            qx = dense(bp["xattn"]["q"], x).reshape(B, cfg.n_heads,
+                                                    cfg.head_dim)
+            ax = decode_attention(qx, c["xk"], c["xv"], every, h.dtype)
+            h = h + dense(bp["xattn"]["o"], ax.reshape(B, -1))[:, None, :]
+            h = _mlp_part(bp, h, cfg)
+        cache["lens"] = lens + 1
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        return self._logits(params, h[:, 0, :]), cache

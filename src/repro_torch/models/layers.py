@@ -1,4 +1,5 @@
-"""Core neural layers: norms, RoPE, GQA attention, MLPs.
+"""Core neural layers: norms, RoPE and sinusoidal positions, GQA
+attention, MLPs.
 
 Port of the reference ``models/layers.py``: pure functions over explicit
 param dicts (specs built by the matching ``*_spec`` function).  Attention
@@ -73,6 +74,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The rows of the sinusoidal table at ``positions`` (an integer
+    tensor [N], on its device) -> [N, d] float32, the same bits as
+    gathering them from ``sinusoidal_table``."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=F32, device=positions.device)
+                      * (math.log(10_000.0) / max(1, half - 1)))
+    ang = positions.to(F32)[:, None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_table(seq: int, d: int, device) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positional table [seq, d] (float32,
+    on ``device``): sines, then cosines."""
+    return sinusoidal_rows(torch.arange(seq, device=device), d)
+
+
 # ---------------------------------------------------------------------------
 # Projections
 
@@ -117,7 +135,8 @@ def attention_spec(cfg) -> dict:
 
 
 def project_qkv(p: dict, x: torch.Tensor, cfg, positions):
-    """x [B,S,d] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (+RoPE applied)."""
+    """x [B,S,d] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (+RoPE applied when
+    ``cfg.pos`` is ``"rope"``; otherwise ``positions`` is not read)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = dense(p["q"], x).reshape(B, S, cfg.q_heads(), hd)

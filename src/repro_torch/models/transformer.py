@@ -1,12 +1,14 @@
-"""Decoder-only LM for the dense, MoE, SSM and hybrid families: the
+"""Decoder-only LM for the dense, MoE, SSM, hybrid and VLM families: the
 serving path.
 
-Port of the reference ``models/transformer.py``: token embedding, a loop
+Port of the reference ``models/transformer.py``: token embedding (for
+the VLM family behind a prefix of precomputed patch embeddings), a loop
 over the stacked repeating block groups (the reference's ``lax.scan``)
 and then the tail blocks, final norm, and last-position logits.  Two
 entry points serve a model:
 
-  ``prefill_fn`` — forward over a prompt; returns last-position logits and
+  ``prefill_fn`` — forward over a prompt (``patches`` [B,P,d] in front
+                   of the VLM's tokens); returns last-position logits and
                    a decode cache sized ``max_len``
   ``decode_fn``  — one-token serve step against the cache
 
@@ -15,8 +17,9 @@ capacity-bounded expert FFN of ``models/moe.py`` in place of the MLP;
 its aux loss is dropped, since serving has no loss), ``SSM``,
 ``RECURRENT`` (RG-LRU) and ``LOCAL_ATTN`` (sliding-window attention with
 a ring cache).  The training entry point ``loss_fn`` raises
-``NotImplementedError`` (ROADMAP A11.4).  Without the enc-dec family
-there are no sinusoidal positions.  The param and cache trees keep the
+``NotImplementedError`` (ROADMAP A11.4).  Sinusoidal positions belong to
+the enc-dec family (``models/encdec.py``); no config of these families
+has them.  The param and cache trees keep the
 reference's layout (stacked ``blocks``/``layers`` with a leading group
 dim, a ``tail`` list), so carrying weights across is a plain map; the
 weights may be held in the float32 store or the 16-bit one
@@ -107,10 +110,11 @@ def model_spec(cfg: ArchConfig) -> dict:
 # Block application — prefill sequence form
 
 
-def _attn_part(p, h, cfg, positions, window):
+def _attn_part(p, h, cfg, positions, window=0, causal=True):
+    """Pre-norm self-attention with its residual -> (h', (k, v))."""
     x = apply_norm(p["ln1"], h, cfg.norm)
     q, k, v = project_qkv(p["attn"], x, cfg, positions)
-    a = attention(q, k, v, cfg, causal=True, window=window)
+    a = attention(q, k, v, cfg, causal=causal, window=window)
     B, S = a.shape[:2]
     return h + dense(p["attn"]["o"], a.reshape(B, S, -1)), (k, v)
 
@@ -190,34 +194,42 @@ def _attn_cache_from_prefill(k, v, kind, cfg, max_len):
 # Block application — decode (one token)
 
 
+def attn_decode(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
+                cache: dict, lens: torch.Tensor) -> torch.Tensor:
+    """The self-attention half of a decode step with its residual: writes
+    the new K/V row (for ``LOCAL_ATTN`` into ring slot ``lens % W``, with
+    its position) into ``cache``'s tensors in place and attends over the
+    rows it keeps.  h [B,1,d]; lens [B] = tokens already in cache."""
+    x = apply_norm(p["ln1"], h, cfg.norm)
+    q, k, v = project_qkv(p["attn"], x, cfg, lens[:, None])
+    B = h.shape[0]
+    rows = torch.arange(B, device=h.device)
+    kc, vc = cache["k"], cache["v"]
+    if kind == BlockKind.LOCAL_ATTN:
+        W = cfg.window
+        at = (lens % W).long()
+        pc = cache["pos"]
+        pc[rows, at] = lens.to(pc.dtype)
+        valid = ((pc >= 0) & (pc >= (lens - W + 1)[:, None])
+                 & (pc <= lens[:, None]))
+    else:
+        at = lens.long()
+        S = kc.shape[1]
+        valid = torch.arange(S, device=h.device)[None, :] <= at[:, None]
+    kc[rows, at] = k[:, 0].to(kc.dtype)
+    vc[rows, at] = v[:, 0].to(vc.dtype)
+    a = decode_attention(q[:, 0], kc, vc, valid, h.dtype)
+    return h + dense(p["attn"]["o"], a.reshape(B, -1))[:, None, :]
+
+
 def apply_block_decode(p: dict, h: torch.Tensor, kind: BlockKind,
                        cfg: ArchConfig, cache: dict, lens: torch.Tensor):
     """h [B,1,d]; lens [B] = tokens already in cache. -> (h', cache').
 
-    Attention writes the new K/V row (for ``LOCAL_ATTN`` into ring slot
-    ``lens % W``, with its position) into ``cache``'s tensors in place;
-    the SSM and RG-LRU steps return a fresh state."""
+    Attention writes its K/V row into ``cache`` in place
+    (``attn_decode``); the SSM and RG-LRU steps return a fresh state."""
     if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE):
-        x = apply_norm(p["ln1"], h, cfg.norm)
-        q, k, v = project_qkv(p["attn"], x, cfg, lens[:, None])
-        B = h.shape[0]
-        rows = torch.arange(B, device=h.device)
-        kc, vc = cache["k"], cache["v"]
-        if kind == BlockKind.LOCAL_ATTN:
-            W = cfg.window
-            at = (lens % W).long()
-            pc = cache["pos"]
-            pc[rows, at] = lens.to(pc.dtype)
-            valid = ((pc >= 0) & (pc >= (lens - W + 1)[:, None])
-                     & (pc <= lens[:, None]))
-        else:
-            at = lens.long()
-            S = kc.shape[1]
-            valid = torch.arange(S, device=h.device)[None, :] <= at[:, None]
-        kc[rows, at] = k[:, 0].to(kc.dtype)
-        vc[rows, at] = v[:, 0].to(vc.dtype)
-        a = decode_attention(q[:, 0], kc, vc, valid, h.dtype)
-        h = h + dense(p["attn"]["o"], a.reshape(B, -1))[:, None, :]
+        h = attn_decode(p, h, kind, cfg, cache, lens)
         h = h + _ffn(p, apply_norm(p["ln2"], h, cfg.norm), kind, cfg)
     elif kind == BlockKind.SSM:
         x = apply_norm(p["ln"], h, cfg.norm)
@@ -362,11 +374,15 @@ class DecoderLM:
         return (h @ self.head_w(params).to(h.dtype))[:, : self.cfg.vocab]
 
     # -- forward ------------------------------------------------------------
-    def hidden(self, params, tokens, collect_cache: bool = False,
-               max_len: int = 0):
-        """tokens [B,S] -> (h [B,S,d] after the final norm, cache|None)."""
+    def hidden(self, params, tokens, patches=None,
+               collect_cache: bool = False, max_len: int = 0):
+        """tokens [B,S] (behind ``patches`` [B,P,d], the VLM's prefix) ->
+        (h [B,P+S,d] after the final norm, cache|None); positions run
+        over all P + S rows."""
         cfg = self.cfg
         h = _embed_tokens(params, tokens, cfg)
+        if patches is not None:
+            h = torch.cat([patches.to(h.dtype), h], dim=1)
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
         h, cache = trunk(params, h, cfg, positions, collect_cache, max_len)
@@ -379,9 +395,10 @@ class DecoderLM:
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
-    def prefill_fn(self, params, tokens, max_len: int):
-        """-> (last-position logits [B,V], cache)."""
-        h, cache = self.hidden(params, tokens, collect_cache=True,
+    def prefill_fn(self, params, tokens, max_len: int, patches=None):
+        """-> (last-position logits [B,V], cache); ``lens`` counts the
+        patches too."""
+        h, cache = self.hidden(params, tokens, patches, collect_cache=True,
                                max_len=max_len)
         logits = self._logits(params, h[:, -1, :])
         cache["lens"] = torch.full((tokens.shape[0],), h.shape[1],

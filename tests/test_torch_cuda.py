@@ -610,6 +610,9 @@ def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
     (2, 65, 65, 16, 1, 256), (1, 129, 129, 8, 8, 256),
     (1, 1, 129, 16, 1, 256), (1, 129, 63, 16, 1, 256),
     (1, 4097, 4097, 16, 1, 256),
+    # phi-3-vision-4.2b's head layout (32/32 heads at hd 96, a group of
+    # 1), which every dtype takes to the CUDA-core kernel
+    (2, 600, 600, 32, 32, 96), (1, 77, 300, 32, 32, 96),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -641,20 +644,27 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [300, 2048])
-def test_cuda_fused_attention_mha_equals_plain(cuda, S):
-    """The model's entry point at moonshot-v1-16b-a3b's attention: 16
-    query heads over 16 kv heads (a group of 1), hd 128, bf16, causal,
-    on the tensor-core route, within ``FLASH_TOL``; 2048 is its prefill
-    length."""
+@pytest.mark.parametrize("B,Sq,Skv,H,hd,causal", [
+    (2, 300, 300, 16, 128, True), (2, 2048, 2048, 16, 128, True),
+    (2, 1500, 1500, 6, 64, False), (2, 432, 1500, 6, 64, False)],
+    ids=["moonshot-300", "moonshot-2048", "whisper-encoder",
+         "whisper-cross"])
+def test_cuda_fused_attention_mha_equals_plain(cuda, B, Sq, Skv, H, hd,
+                                               causal):
+    """The model's entry point at multi-head attention (H query heads
+    over H kv heads, a group of 1) in bf16, on the tensor-core route,
+    within ``FLASH_TOL``: moonshot-v1-16b-a3b's (16 heads, hd 128,
+    causal; 2048 is its prefill length) and whisper-tiny's non-causal
+    ones (6 heads, hd 64, over 1500 encoder frames: the encoder's own
+    rows and a 432-token decoder prompt's cross-attention)."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import fused_attention
-    q, k, v = flash_inputs(cuda, torch.bfloat16, "cmha", 2, S, S, 16, 16,
-                           128)
+    q, k, v = flash_inputs(cuda, torch.bfloat16, "cmha", B, Sq, Skv, H, H,
+                           hd)
     before = dict(kernels.LAUNCHES)
-    got = fused_attention(q, k, v, causal=True)
-    want = flash_attention_plain(q, k, v, causal=True)
+    got = fused_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_attention_wgmma"] == (
         before["flash_attention_wgmma"] + 1)
@@ -814,15 +824,20 @@ def test_cuda_init_params_16bit_store(cuda, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b",
                                   "recurrentgemma-9b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "whisper-tiny",
+                                  "phi-3-vision-4.2b"])
 def test_cuda_model_equals_cpu(cuda, arch, dtype):
     """A smoke model's prefill (a 40-token prompt: the attention kernel's
     branch, whole SSD chunks plus a pad, a full 32-slot ring for the
     hybrid's local attention, the MoE dispatch at moonshot's capacity
-    factor of 4.0) and two decode steps on the card, against
+    factor of 4.0, whisper's 16 encoder frames, phi-3-vision's 8 patches
+    in front) and two decode steps on the card (whisper's without a host
+    sync), against
     the same weights on the CPU: float32 within 1e-4 of the logits'
     scale, bfloat16 within 3e-2 * max(1, scale).  One prefill forward
-    launches its kernel once per attention (or SSD) layer."""
+    launches its kernel once per attention (or SSD) layer; whisper's
+    once per decoder layer for its self-attention and once for its
+    cross-attention (16 frames take the encoder's full attention)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -834,7 +849,7 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     r = rng("ctaps")
     # zero taps at init: every SSM block would give 0, every RG-LRU
     # block's conv its bias alone
-    for blk in (*p_cpu["blocks"].values(), *p_cpu.get("tail", [])):
+    for blk in (*p_cpu.get("blocks", {}).values(), *p_cpu.get("tail", [])):
         for name in ("ssm", "rglru"):
             if name not in blk:
                 continue
@@ -844,14 +859,30 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
     toks = T(rng("cmodel", arch).randint(0, cfg.vocab, (2, 42)).astype(
         np.int32))
+    extra, pre = {}, 0
+    if cfg.family == "encdec":
+        extra["frames"] = T((rng("cframes").randn(2, cfg.enc_seq, cfg.d_model)
+                             * 0.02).astype(np.float32))
+    if cfg.family == "vlm":
+        pre = cfg.n_patches
+        extra["patches"] = T((rng("cpatches").randn(2, pre, cfg.d_model)
+                              * 0.02).astype(np.float32))
     kernels.reset_counts()
     outs = []
     for model, params, dev in ((gpu, p_gpu, cuda), (cpu, p_cpu, "cpu")):
         t = toks.to(dev)
-        logits, cache = model.prefill_fn(params, t[:, :40], 48)
+        kw = {k: x.to(dev) for k, x in extra.items()}
+        logits, cache = model.prefill_fn(params, t[:, :40], pre + 48, **kw)
         steps = [logits]
+        # whisper's decode step makes no host sync on the card (no RoPE;
+        # its sinusoidal row is gathered by the device tensor ``lens``)
+        quiet = dev == cuda and cfg.family == "encdec"
         for i in (40, 41):
-            logits, cache = model.decode_fn(params, t[:, i], cache)
+            torch.cuda.set_sync_debug_mode("error" if quiet else 0)
+            try:
+                logits, cache = model.decode_fn(params, t[:, i], cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
             steps.append(logits)
         outs.append([x.float().cpu() for x in steps])
     torch.cuda.synchronize()
@@ -860,6 +891,8 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
     n = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.SSM,
                   BlockKind.MOE) for k in kinds)
+    if cfg.family == "encdec":
+        n *= 2  # self- and cross-attention in each decoder layer
     assert kernels.LAUNCHES[name] == n  # one prefill forward
     for got, want in zip(*outs):
         scale = float(want.abs().max())

@@ -4,16 +4,20 @@ Inputs are made with numpy from a seed; the reference's params come from
 ``repro.models.init_params`` and are carried across with
 ``params_from_reference``, so both packages compute from the same
 weights.  Each layer the serving path runs is held to the reference's at
-1e-5 in float32 (the MoE layer in ``tests/test_torch_moe.py``); every
-``dense``, ``moe``, ``ssm`` and ``hybrid`` smoke config's ``hidden``,
+1e-5 in float32 (the MoE layer in ``tests/test_torch_moe.py``, the
+enc-dec model's in ``tests/test_torch_encdec.py``); every smoke
+config's ``hidden`` (for the enc-dec family ``encode`` feeding
+``_decoder_hidden``; for the VLM, ``hidden`` behind its patches),
 ``prefill_fn`` and three ``decode_fn`` steps to 1e-4 of the output's
 scale in float32, moonshot's also at a capacity factor where the prefill
-drops pairs.  In bfloat16 the dense, moe and ssm configs are held to the
-reference in bfloat16 at its own decode-vs-forward bound (``3e-2 *
+drops pairs, whisper's also with an encoder past ``attention()``'s
+full-attention cut.  In bfloat16 every family but the hybrid is held to
+the reference in bfloat16 at its own decode-vs-forward bound (``3e-2 *
 max(1, scale)``, ``tests/test_models.py``), the hybrid to the reference
 in float32 at ``HYBRID_BF16_TOL`` (see there).  The 16-bit weight store
 (``store=cfg.dtype``) computes the float32 store's bits in every
-family.
+family.  Frames and patches are drawn at the reference test's 0.02
+scale.
 On the CPU the attention kernel's and the SSD kernel's plain versions
 run: the smoke configs' 40-token prompts take ``attention()``'s chunked
 branch and pad ``apply_ssd`` to whole chunks.  The hybrid's local
@@ -51,13 +55,11 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import params as TP
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_reference
-from repro_torch.models.model_api import WAITS_FOR
 from repro_torch.models.params import is_leaf_spec, tree_leaves
 
 SERVED = ["yi-6b", "qwen2-7b", "starcoder2-15b", "mistral-large-123b",
           "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-1.3b",
-          "recurrentgemma-9b"]
-OTHER = [a for a in ARCH_NAMES if a not in SERVED]
+          "recurrentgemma-9b", "whisper-tiny", "phi-3-vision-4.2b"]
 TOL = 1e-5
 
 
@@ -190,15 +192,15 @@ def test_cuda_without_a_card_raises(monkeypatch):
         params_from_reference({}, cfg)
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_unported_families_raise(arch):
-    """Each names the ROADMAP item it waits for (A11.3: enc-dec and
-    VLM)."""
-    cfg = get_config(arch, smoke=True)
-    item = WAITS_FOR[cfg.family].replace(".", r"\.")
-    with pytest.raises(NotImplementedError, match=item):
+def test_every_config_is_served():
+    """Every config's family has a model; a family that no config has
+    raises."""
+    assert sorted(SERVED) == sorted(ARCH_NAMES)
+    cfg = dataclasses.replace(get_config("yi-6b", smoke=True),
+                              family="audio")
+    with pytest.raises(NotImplementedError, match="audio"):
         build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="audio"):
         model_cache_spec(cfg, 1, 8)
 
 
@@ -442,7 +444,7 @@ def seed_conv_taps(rp, r):
     and RG-LRU block, in the groups and the tail: both are zeros at
     init, which makes every SSM block output 0 and every RG-LRU block's
     conv output its bias alone."""
-    blocks = [*rp["blocks"].values(), *rp.get("tail", [])]
+    blocks = [*rp.get("blocks", {}).values(), *rp.get("tail", [])]
     for blk in blocks:
         for name in ("ssm", "rglru"):
             if name in blk:
@@ -461,19 +463,21 @@ def leaves(tree, name=""):
     return [(name, tree)]
 
 
-def served_outputs(hidden, prefill, decode, toks, S, steps):
+def served_outputs(hidden, prefill, decode, toks, S, steps, pre=0):
     """[(name, array)] of ``hidden`` over S + steps tokens, then the
     logits and every cache leaf (groups and tail, ``lens`` included)
     after ``prefill`` over S tokens and after each of ``steps``
     ``decode`` steps, each copied as it is made (the port writes its
-    cache in place).  Floating leaves come as float32."""
+    cache in place).  ``pre``: positions in front of the tokens (the
+    VLM's patches), which the cache holds too.  Floating leaves come as
+    float32."""
     def snap(a):
         a = np.array(a.float() if torch.is_tensor(a) and a.is_floating_point()
                      else a, copy=True)
         return a if a.dtype.kind in "iu" else a.astype(np.float32)
 
     out = [("hidden", snap(hidden(toks)))]
-    logits, cache = prefill(toks[:, :S], S + 8)
+    logits, cache = prefill(toks[:, :S], pre + S + 8)
     for i in range(S, S + steps + 1):
         out += [("logits", snap(logits))]
         out += [(k, snap(v)) for k, v in leaves(cache)]
@@ -482,24 +486,51 @@ def served_outputs(hidden, prefill, decode, toks, S, steps):
     return out
 
 
-def port_outputs(model, params, toks, S, steps):
-    return served_outputs(lambda t: model.hidden(params, T(t))[0],
-                          lambda t, n: model.prefill_fn(params, T(t), n),
-                          lambda t, c: model.decode_fn(params, T(t), c),
-                          toks, S, steps)
+def model_outputs(model, params, toks, S, steps, extra, A):
+    """``served_outputs`` of a model of either package (``A`` makes its
+    arrays): ``hidden`` is ``encode`` feeding ``_decoder_hidden`` for the
+    enc-dec family (``extra["frames"]``), ``hidden`` behind the patches
+    for the VLM (``extra["patches"]``), else ``hidden``; the prefill
+    takes ``extra`` as it is."""
+    kw = {k: A(v) for k, v in extra.items()}
+    if "frames" in kw:
+        def hidden(t):
+            return model._decoder_hidden(params, A(t),
+                                         model.encode(params,
+                                                      kw["frames"]))[0]
+    else:
+        def hidden(t):
+            return model.hidden(params, A(t), kw.get("patches"))[0]
+    pre = extra["patches"].shape[1] if "patches" in extra else 0
+    return served_outputs(
+        hidden, lambda t, n: model.prefill_fn(params, A(t), n, **kw),
+        lambda t, c: model.decode_fn(params, A(t), c), toks, S, steps, pre)
 
 
-def ref_outputs(ref, params, toks, S, steps):
-    return served_outputs(lambda t: ref.hidden(params, J(t))[0],
-                          lambda t, n: ref.prefill_fn(params, J(t), n),
-                          lambda t, c: ref.decode_fn(params, J(t), c),
-                          toks, S, steps)
+def port_outputs(model, params, toks, S, steps, extra):
+    return model_outputs(model, params, toks, S, steps, extra, T)
+
+
+def ref_outputs(ref, params, toks, S, steps, extra):
+    return model_outputs(ref, params, toks, S, steps, extra, J)
+
+
+def model_inputs(cfg, r):
+    """The enc-dec family's ``frames`` or the VLM's ``patches`` for B = 2,
+    at the reference test's 0.02 scale (else nothing)."""
+    if cfg.family == "encdec":
+        return {"frames": randn(r, 2, cfg.enc_seq, cfg.d_model, scale=0.02)}
+    if cfg.family == "vlm":
+        return {"patches": randn(r, 2, cfg.n_patches, cfg.d_model,
+                                 scale=0.02)}
+    return {}
 
 
 def served_setup(arch, dtype, S, steps, seed=0, **overrides):
     """(smoke cfg in ``dtype`` with ``overrides``, reference params with
     seeded conv taps, the port's model and params on the same weights,
-    B = 2 prompts of S + steps tokens)."""
+    B = 2 prompts of S + steps tokens, the frames or patches the family
+    takes)."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype,
                               **overrides)
     salt = (arch,) if seed == 0 else (arch, seed)
@@ -509,7 +540,7 @@ def served_setup(arch, dtype, S, steps, seed=0, **overrides):
     tp = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu")
     toks = rs("model", *salt).randint(0, cfg.vocab, (2, S + steps)).astype(
         np.int32)
-    return cfg, rp, model, tp, toks
+    return cfg, rp, model, tp, toks, model_inputs(cfg, rs("inputs", *salt))
 
 
 def max_errs(got, want):
@@ -550,14 +581,14 @@ def model_matches_reference(arch, dtype, S, steps, **overrides):
     bf16 computations (the reference's and the port's, which round
     products in different orders) lie as far from each other as each
     lies from float32."""
-    cfg, rp, model, tp, toks = served_setup(arch, dtype, S, steps,
-                                            **overrides)
+    cfg, rp, model, tp, toks, extra = served_setup(arch, dtype, S, steps,
+                                                   **overrides)
     hybrid_bf16 = dtype == "bfloat16" and cfg.family == "hybrid"
     ref = ref_build(f32(cfg) if hybrid_bf16 else cfg)
     tol = (1e-4 if dtype == "float32"
            else HYBRID_BF16_TOL if hybrid_bf16 else 3e-2)
-    got = port_outputs(model, tp, toks, S, steps)
-    want = ref_outputs(ref, rp, toks, S, steps)
+    got = port_outputs(model, tp, toks, S, steps, extra)
+    want = ref_outputs(ref, rp, toks, S, steps, extra)
     for name, err, scale in max_errs(got, want):
         bound = tol * (scale if dtype == "float32" else max(1.0, scale))
         assert err <= bound, (arch, dtype, name, err, bound)
@@ -567,11 +598,12 @@ def bf16_readings(arch, S, steps, seed):
     """{output or leaf name: (port bf16, reference bf16)}: the largest
     error of each against the reference in float32 on the same weights,
     over max(1, its scale)."""
-    cfg, rp, model, tp, toks = served_setup(arch, "bfloat16", S, steps,
-                                            seed)
-    want = ref_outputs(ref_build(f32(cfg)), rp, toks, S, steps)
-    port = max_errs(port_outputs(model, tp, toks, S, steps), want)
-    own = max_errs(ref_outputs(ref_build(cfg), rp, toks, S, steps), want)
+    cfg, rp, model, tp, toks, extra = served_setup(arch, "bfloat16", S,
+                                                   steps, seed)
+    want = ref_outputs(ref_build(f32(cfg)), rp, toks, S, steps, extra)
+    port = max_errs(port_outputs(model, tp, toks, S, steps, extra), want)
+    own = max_errs(ref_outputs(ref_build(cfg), rp, toks, S, steps, extra),
+                   want)
     out = {}
     for (name, e_p, sc), (_, e_r, _) in zip(port, own):
         p, r = out.get(name, (0.0, 0.0))
@@ -583,8 +615,17 @@ def bf16_readings(arch, S, steps, seed):
 @pytest.mark.parametrize("arch", SERVED)
 def test_model_matches_reference(arch, dtype):
     """A 40-token prompt and three decode steps (past the hybrid smoke
-    config's 32-slot ring)."""
+    config's 32-slot ring; behind the VLM's 8 patches; against
+    whisper's 16 encoder frames, which take the full-attention branch)."""
     model_matches_reference(arch, dtype, 40, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_fused_encoder_matches_reference(dtype):
+    """whisper's smoke config with 40 encoder frames, past its 32-key
+    ``kv_chunk``: the encoder's self-attention takes ``attention()``'s
+    fused, non-causal branch, as whisper-tiny's 1500 frames do."""
+    model_matches_reference("whisper-tiny", dtype, 40, 3, enc_seq=40)
 
 
 def test_moe_with_drops_matches_reference():
@@ -594,8 +635,8 @@ def test_moe_with_drops_matches_reference():
     and the port still matches the reference's hidden, prefill and
     three decode steps (two tokens a step: capacity 8, no drop)."""
     arch, S = "moonshot-v1-16b-a3b", 40
-    _, _, model, tp, toks = served_setup(arch, "float32", S, 3,
-                                         capacity_factor=1.0)
+    _, _, model, tp, toks, _ = served_setup(arch, "float32", S, 3,
+                                            capacity_factor=1.0)
     TMOE.reset_dropped()
     model.prefill_fn(tp, T(toks[:, :S]), S + 8)
     assert TMOE.dropped_pairs() > 0
@@ -603,8 +644,9 @@ def test_moe_with_drops_matches_reference():
 
 
 # leaves every path reads in float32: the 16-bit store keeps them so
-F32_READ = {"router", "ln", "ln1", "ln2", "final_norm", "norm", "w_a",
-            "w_i", "lam", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip"}
+F32_READ = {"router", "ln", "ln1", "ln2", "lnx", "enc_norm", "final_norm",
+            "norm", "w_a", "w_i", "lam", "conv_w", "conv_b", "a_log",
+            "dt_bias", "d_skip"}
 
 
 def leaf_paths(tree, path=()):
@@ -618,15 +660,17 @@ def leaf_paths(tree, path=()):
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
-                                  "mamba2-1.3b", "recurrentgemma-9b"],
-                         ids=["dense", "moe", "ssm", "hybrid"])
+                                  "mamba2-1.3b", "recurrentgemma-9b",
+                                  "whisper-tiny", "phi-3-vision-4.2b"],
+                         ids=["dense", "moe", "ssm", "hybrid", "encdec",
+                              "vlm"])
 def test_16bit_store_equals_float32_store(arch):
     """The same reference weights carried across in the float32 store and
     in the 16-bit one (``store=cfg.dtype``), bf16 compute: ``hidden``,
     then the logits and every cache leaf after a prefill and after each
     of three decode steps, equal bit for bit.  The leaves read in
     float32 (``F32_READ``) stay float32 and equal; the rest are bf16."""
-    cfg, rp, model, tp, toks = served_setup(arch, "bfloat16", 40, 3)
+    cfg, rp, model, tp, toks, extra = served_setup(arch, "bfloat16", 40, 3)
     t16 = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu",
                                 store=cfg.dtype)
     for (path, x16), (_, x32) in zip(leaf_paths(t16), leaf_paths(tp)):
@@ -634,8 +678,8 @@ def test_16bit_store_equals_float32_store(arch):
         assert x16.dtype == (torch.float32 if f32_read
                              else torch.bfloat16), path
         assert torch.equal(x16, x32.to(x16.dtype)), path
-    got = port_outputs(model, t16, toks, 40, 3)
-    want = port_outputs(model, tp, toks, 40, 3)
+    got = port_outputs(model, t16, toks, 40, 3, extra)
+    want = port_outputs(model, tp, toks, 40, 3, extra)
     assert [k for k, _ in got] == [k for k, _ in want]
     for (name, g), (_, w) in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w), name
