@@ -46,7 +46,7 @@
 // thread) and HD_MAX = 256 for 128 < hd <= 256 (145 KB of shared memory
 // at hd = 256, so one block an SM, and up to 255 registers a thread for
 // the 64-float accumulator).  `launch` picks the instantiation from hd.
-// 16-bit inputs at hd 64, 128 and 256 take csrc/flash_attention_tc.cu
+// 16-bit inputs at hd 64, 96, 128 and 256 take csrc/flash_attention_tc.cu
 // instead (recurrentgemma's local attention at 256 among them); this
 // kernel takes float32 at every hd and 16-bit inputs at the others.
 // With G query heads per kv head a block holds BQ = 64/G positions: at

@@ -1,5 +1,5 @@
 // GQA flash attention on Hopper's tensor cores (sm_90a): wgmma tiles fed
-// by TMA, for bfloat16 and float16 at head_dim 64, 128 and 256.
+// by TMA, for bfloat16 and float16 at head_dim 64, 96, 128 and 256.
 //
 // Replaces the TPU kernel `flash_attention` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention/flash_attention.py:92 on the 16-bit
@@ -16,15 +16,18 @@
 // q/k/v/out: 0.0695 ms at the 989 TFLOP/s bf16 tensor-core peak, three
 // times the 0.0225 ms the bytes take.  At recurrentgemma-9b's (B=2,
 // S=4096, 16/1 heads, hd=256, window 2048) the band is 206 GFLOP against
-// 143 MB: 0.208 ms against 0.043.  So the design keeps the tensor cores
+// 143 MB: 0.208 ms against 0.043; at phi-3-vision-4.2b's (B=2, S=2048,
+// 32/32 heads, hd=96, causal) 51.6 GFLOP against 101 MB: 0.0521 ms
+// against 0.030.  So the design keeps the tensor cores
 // fed and takes everything else off their path:
 //   * tiles stay 16-bit in shared memory, in wgmma's 128-byte-swizzled
 //     layout, written there by TMA: q, k and v are 4-D tensor maps over
 //     (hd, H, S, B) with their real strides, so a [positions x 64] box is
 //     cut out of [B,S,H,hd] with no index math in the threads (hd = 128 is
 //     two 64-column boxes, hd = 256 four: a swizzled box spans at most 128
-//     bytes).  Rows past S come back as zeros, so keys >= Skv are still
-//     masked;
+//     bytes; hd = 96 two, the second half past the tensor's width).  Rows
+//     past S and columns past hd come back as zeros, so keys >= Skv are
+//     still masked;
 //   * S = Q K^T is `wgmma.m64n{BN}k16` with A = the Q tile and B = the K
 //     tile, both K-major from shared memory, hd/16 k-steps;
 //   * the online softmax runs on the accumulator fragment in registers:
@@ -57,6 +60,17 @@
 //     output through padded shared memory (no bank conflicts) to 16-byte
 //     coalesced stores.  At hd 128: Q 32 KB, K and V 2 x 32 KB each, the
 //     staging 34 KB: 195 KB.
+//   * hd 96 (192 bytes a row, one and a half boxes) takes hd 128's tiles
+//     and threads over NB = 2 boxes.  The tensor maps keep the true
+//     width, so TMA fills the second box's columns 96..127 with zeros and
+//     reads no global bytes for them; it still credits whole boxes to the
+//     barriers, so the expected bytes count whole boxes.  Q K^T runs the
+//     6 k-steps of the true width.  O += P V is one m64n96k16 a k-step
+//     (its B descriptor stops half-way into the second box's 128-byte
+//     swizzle atoms), which never reads the zero columns, into 48 floats
+//     a thread; the scale is 1/sqrt(96).  Staging rows of 104
+//     elements (the fragment writes land on 32 distinct banks): Q 32 KB,
+//     K and V 2 x 32 KB each, the staging 26 KB: 187 KB.
 //   * hd 256: that layout would need Q 64 KB, K and V rings of 2 x 64 KB
 //     each and 66 KB of staging, far over the 227 KB a block may have,
 //     and an O accumulator of 128 floats a consumer thread.  So kv tiles
@@ -94,19 +108,21 @@ constexpr int BOX = 64;        // head-dim columns per TMA box (128 bytes)
 constexpr int OUT_ROWS = 64;   // rows of a TMA output box (one warpgroup)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// What the head dim sets (see the header): hd 64 and 128 keep 128-key
-// tiles, one producer warp and padded output staging; hd 256 ("wide")
-// takes 64-key tiles, a producer warpgroup that hands its registers to
-// the consumers, and stages the output in the Q tile for TMA stores.
+// What the head dim sets (see the header): hd 64, 96 and 128 keep
+// 128-key tiles, one producer warp and padded output staging; hd 256
+// ("wide") takes 64-key tiles, a producer warpgroup that hands its
+// registers to the consumers, and stages the output in the Q tile for TMA
+// stores.  Tiles hold NB whole boxes a row.
 template <int HD>
 struct Layout {  // byte offsets from a 1024-aligned base
   static constexpr bool WIDE = HD > 128;
+  static constexpr int NB = (HD + BOX - 1) / BOX;  // boxes a row
   static constexpr int BN = WIDE ? 64 : 128;    // keys per kv tile
   static constexpr int THREADS = CONSUMERS + (WIDE ? 128 : 32);
   static constexpr int ON = WIDE ? 64 : HD / 2;  // O floats a wgmma holds
   static constexpr int OH = HD / 2 / ON;         // O products per k-step
-  static constexpr int Q_BYTES = BM * HD * 2;   // HD/64 boxes of BM x 64
-  static constexpr int KV_BYTES = BN * HD * 2;  // one K or V tile
+  static constexpr int Q_BYTES = BM * NB * BOX * 2;   // NB boxes of BM x 64
+  static constexpr int KV_BYTES = BN * NB * BOX * 2;  // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
@@ -119,7 +135,8 @@ struct Layout {  // byte offsets from a 1024-aligned base
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536,
               "the wide layout's registers exceed the SM's");
-static_assert(Layout<256>::ALLOC <= 232448 && Layout<128>::ALLOC <= 232448,
+static_assert(Layout<256>::ALLOC <= 232448 && Layout<128>::ALLOC <= 232448 &&
+                  Layout<96>::ALLOC <= 232448,
               "a layout exceeds the 227 KB a block may have");
 
 struct Shape {
@@ -257,15 +274,18 @@ __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define D32 D8(0), D8(8), D8(16), D8(24)
-#define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define D48 D32, D8(32), D8(40)
+#define D64 D48, D8(48), D8(56)
 #define R32                                                               \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
   "%30, %31"
-#define R64                                                               \
+#define R48                                                               \
   R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
-      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-      "%58, %59, %60, %61, %62, %63"
+      "%45, %46, %47"
+#define R64                                                               \
+  R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+      "%61, %62, %63"
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N], A and B from shared memory, both
 // K-major; accumulate = 0 overwrites d; N = 128 (d[64]) or 64 (d[32])
@@ -305,8 +325,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N], A from registers (four packed pairs
-// a thread), B from shared memory MN-major (trans-b = 1); N = 128 (d[64])
-// or 64 (d[32])
+// a thread), B from shared memory MN-major (trans-b = 1); N = 128 (d[64]),
+// 96 (d[48]) or 64 (d[32])
 template <bool BF16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
@@ -324,6 +344,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" R64
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+template <bool BF16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {" R48
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : D48
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.f16.f16 {" R48
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : D48
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 }
@@ -350,8 +390,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 
 #undef D8
 #undef D32
+#undef D48
 #undef D64
 #undef R32
+#undef R48
 #undef R64
 
 template <typename T>
@@ -423,7 +465,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // producer: the Q tile once, then the K/V ring
     if (warp == CONSUMERS / 32 && lane == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
-      for (int c = 0; c < HD / BOX; ++c)
+      for (int c = 0; c < L::NB; ++c)
         tma_load_4d(base + c * BM * 128, &tq, c * BOX, h, q0, b, bar_q);
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % STAGES;
@@ -431,7 +473,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
           mbar_wait(bar_empty + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_BYTES);
         const int kt = (t_begin + i) * BN;
-        for (int c = 0; c < HD / BOX; ++c) {
+        for (int c = 0; c < L::NB; ++c) {
           const uint32_t off = s * L::KV_BYTES + c * BN * 128;
           tma_load_4d(base + L::K_OFF + off, &tk, c * BOX, hk, kt, b,
                       bar_full + 8 * s);
@@ -599,7 +641,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
     if (threadIdx.x % 128 == 0 && row0 < sh.Sq) {
-      for (int c = 0; c < HD / BOX; ++c)
+      for (int c = 0; c < L::NB; ++c)
         tma_store_4d(&to, base + c * BM * 128 + wg * 64 * 128, c * BOX, h,
                      row0, b);
       tma_store_drain();
@@ -721,6 +763,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
   if (hd == 64)
     return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                             window, offset, st);
+  if (hd == 96)
+    return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+                            window, offset, st);
   if (hd == 128)
     return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                              window, offset, st);
@@ -735,7 +780,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 extern "C" {
 
 // q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd], out [B,Sq,Hq,hd], all contiguous,
-// 16-byte aligned and of one dtype; hd 64, 128 or 256, Skv >= 1.
+// 16-byte aligned and of one dtype; hd 64, 96, 128 or 256, Skv >= 1.
 int flash_attention_tc_bf16(const void* q, const void* k, const void* v,
                             void* out, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t Hq, int64_t Hkv, int64_t hd,

@@ -5,10 +5,12 @@ Port of the reference ``kernels/flash_attention/flash_attention.py``
 one function.  ``_route`` picks one from the dtype and the head dim:
 
 * ``"wgmma"`` (``csrc/flash_attention_tc.cu``): bfloat16 and float16 at
-  head dim 64, 128 or 256, on the tensor cores — TMA-fed 16-bit tiles,
-  both products on ``wgmma``, one q-head and 128 positions per block
-  (at 256, recurrentgemma-9b's local attention, 64-key tiles and a
-  producer warpgroup that hands its registers to the consumers);
+  head dim 64, 96, 128 or 256, on the tensor cores — TMA-fed 16-bit
+  tiles, both products on ``wgmma``, one q-head and 128 positions per
+  block (at 96, phi-3-vision-4.2b's, hd 128's tiles with the columns past
+  96 zero-filled by TMA; at 256, recurrentgemma-9b's local attention,
+  64-key tiles and a producer warpgroup that hands its registers to the
+  consumers);
 * ``"simt"`` (``csrc/flash_attention.cu``): float32 at every head dim,
   and 16-bit inputs at the other head dims up to 256, as float32 FMAs on
   the CUDA cores — one block per (batch, kv-head, q-tile) with every
@@ -49,14 +51,14 @@ _ENTRY = {
     "wgmma": ("flash_attention_tc", {torch.bfloat16: "flash_attention_tc_bf16",
                                      torch.float16: "flash_attention_tc_f16"}),
 }
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def _route(dtype: torch.dtype, hd: int, Hq: int, Hkv: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for 16-bit inputs at a
-    head dim the tensor-core kernel covers (``WGMMA_HEAD_DIMS``: 64, 128
-    and 256), ``"simt"`` for float32 at any head dim up to 256 and for
-    16-bit inputs at the others (96, 132, 192, ...).  Raises for what
+    head dim the tensor-core kernel covers (``WGMMA_HEAD_DIMS``: 64, 96,
+    128 and 256), ``"simt"`` for float32 at any head dim up to 256 and
+    for 16-bit inputs at the others (32, 132, 192, ...).  Raises for what
     neither kernel takes."""
     if dtype not in _ENTRY["simt"][1]:
         raise TypeError(f"flash_attention: dtype {dtype}; expects one of "

@@ -611,8 +611,16 @@ def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
     (1, 1, 129, 16, 1, 256), (1, 129, 63, 16, 1, 256),
     (1, 4097, 4097, 16, 1, 256),
     # phi-3-vision-4.2b's head layout (32/32 heads at hd 96, a group of
-    # 1), which every dtype takes to the CUDA-core kernel
+    # 1): 16 bits on the tensor-core route's hd-96 tiles (hd 128's over
+    # two boxes, the columns past 96 zero-filled), float32 on the
+    # CUDA-core kernel
     (2, 600, 600, 32, 32, 96), (1, 77, 300, 32, 32, 96),
+    # the hd-96 tiles' edges in 16 bits: Sq and Skv of 1, 63, 64, 65, 129
+    # and 2049 around the 128-row and 128-key tiles, Skv < 128 and Sq >
+    # Skv, groups of 1, 4 and 8
+    (1, 1, 1, 8, 1, 96), (1, 63, 63, 4, 4, 96), (1, 64, 64, 8, 8, 96),
+    (2, 65, 65, 4, 1, 96), (1, 129, 129, 8, 1, 96), (1, 1, 129, 4, 1, 96),
+    (1, 129, 63, 8, 8, 96), (1, 2049, 2049, 8, 1, 96),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -622,8 +630,8 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
                                            causal, window, dtype):
     """Ragged lengths, Sq != Skv both ways, groups of 1 to 12 heads;
     float32 within 1e-5 (sums reassociated), bf16 and fp16 within an
-    ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64, 128
-    or 256 take the tensor-core route, the rest (float32, and 16-bit
+    ulp of the output (2e-2, 4e-3).  16-bit inputs at head dim 64, 96,
+    128 or 256 take the tensor-core route, the rest (float32, and 16-bit
     inputs at the other head dims up to 256) the CUDA-core one."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         WGMMA_HEAD_DIMS, _route, flash_attention, flash_attention_plain)
@@ -646,17 +654,20 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Sq, Skv, Hq, Hkv, hd,
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Skv,H,hd,causal", [
     (2, 300, 300, 16, 128, True), (2, 2048, 2048, 16, 128, True),
-    (2, 1500, 1500, 6, 64, False), (2, 432, 1500, 6, 64, False)],
+    (2, 1500, 1500, 6, 64, False), (2, 432, 1500, 6, 64, False),
+    (2, 2048, 2048, 32, 96, True)],
     ids=["moonshot-300", "moonshot-2048", "whisper-encoder",
-         "whisper-cross"])
+         "whisper-cross", "phi-3-vision"])
 def test_cuda_fused_attention_mha_equals_plain(cuda, B, Sq, Skv, H, hd,
                                                causal):
     """The model's entry point at multi-head attention (H query heads
     over H kv heads, a group of 1) in bf16, on the tensor-core route,
     within ``FLASH_TOL``: moonshot-v1-16b-a3b's (16 heads, hd 128,
-    causal; 2048 is its prefill length) and whisper-tiny's non-causal
+    causal; 2048 is its prefill length), whisper-tiny's non-causal
     ones (6 heads, hd 64, over 1500 encoder frames: the encoder's own
-    rows and a 432-token decoder prompt's cross-attention)."""
+    rows and a 432-token decoder prompt's cross-attention) and
+    phi-3-vision-4.2b's prefill (32 heads, hd 96, causal, 2048
+    positions)."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import fused_attention
@@ -674,12 +685,13 @@ def test_cuda_fused_attention_mha_equals_plain(cuda, B, Sq, Skv, H, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 128), (16, 1, 256)])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 128), (16, 1, 256),
+                                       (32, 32, 96)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype, Hq, Hkv, hd):
     """The tensor-core route sums in a fixed order (no atomics): two calls
     on the same inputs give bitwise-equal outputs, at hd 128 and on the
-    hd-256 tiles."""
+    hd-256 and hd-96 tiles."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
     q, k, v = flash_inputs(cuda, dtype, "cdet", 2, 300, 300, Hq, Hkv, hd)

@@ -3,18 +3,19 @@ route's rounding costs (CPU).
 
 ``flash_attention`` launches one of two CUDA kernels for a CUDA tensor:
 ``"wgmma"`` (``csrc/flash_attention_tc.cu``, bfloat16/float16 at head dim
-64, 128 or 256) or ``"simt"`` (``csrc/flash_attention.cu``, everything
-else it takes: float32 at head dims up to 256 and 16-bit inputs at the
-other head dims up to 256, multiples of 4).  ``_route`` is that choice as a pure function; it is checked
-here over dtype x head dim x group.  A CPU tensor runs the plain version
-and launches nothing.
+64, 96, 128 or 256) or ``"simt"`` (``csrc/flash_attention.cu``,
+everything else it takes: float32 at head dims up to 256 and 16-bit
+inputs at the other head dims up to 256, multiples of 4).  ``_route`` is
+that choice as a pure function; it is checked here over dtype x head dim
+x group.  A CPU tensor runs the plain version and launches nothing.
 
 The tensor-core route rounds each tile's probabilities P to the inputs'
 16-bit type before P V, as any tensor-core flash attention does.  The
 last tests write that rounding into a tile loop of their own (no knob on
 the port) and hold it against ``flash_attention_plain`` at yi-6b's head
-dim and prompt length, and at recurrentgemma-9b's head dim and window
-with its 64-key tiles, with reduced head counts, within the tolerances
+dim and prompt length, at phi-3-vision-4.2b's head dim 96, and at
+recurrentgemma-9b's head dim and window with its 64-key tiles, with
+reduced head counts, within the tolerances
 the card's tests use (``tests/test_torch_cuda.py::FLASH_TOL``): any
 design that rounds P this way can meet them.  The plain version is held
 against the reference Pallas kernel by ``test_torch_lm_kernels.py``; the
@@ -86,7 +87,7 @@ def test_route_rejects_other_dtypes_and_groups():
         _route(torch.bfloat16, 64, 65, 1)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, *HALF], ids=str)
 def test_cpu_tensors_run_the_plain_version(dtype, hd):
     q, k, v = inputs(("cpu", hd), dtype, 2, 70, 90, 8, 2, hd)
@@ -107,7 +108,7 @@ def test_launch_route_never_runs_a_cpu_tensor(route):
 
 def p_rounded(q, k, v, *, causal, window, bn=128):
     """The tensor-core route's arithmetic in PyTorch: ``bn``-key tiles
-    (128 at hd 64 and 128, 64 at hd 256), a float32 online softmax, P
+    (128 at hd 64, 96 and 128, 64 at hd 256), a float32 online softmax, P
     rounded to q's dtype before P V."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -139,14 +140,24 @@ def p_rounded(q, k, v, *, causal, window, bn=128):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
-                                           (False, 0)])
+# (salt, Hq, Hkv, hd): yi-6b's head dim with one kv head of four query
+# heads, and phi-3-vision-4.2b's head dim 96 in its head layout (a group
+# of 1) with two heads
+P_ROUND_HEADS = {"": ("pround", 4, 1, 128), "-hd96": ("pround96", 2, 2, 96)}
+
+
+@pytest.mark.parametrize("causal,window,heads", [
+    pytest.param(c, w, h, id=f"{c}-{w}{h}") for h in P_ROUND_HEADS
+    for c, w in [(True, 0), (True, 300), (False, 0)]])
 @pytest.mark.parametrize("dtype", HALF, ids=str)
-def test_p_rounding_stays_within_the_card_tolerance(dtype, causal, window):
-    """yi-6b's head dim and S = 2048 (as its prefill), one kv head of
-    four query heads: P rounded to 16 bits stays within FLASH_TOL."""
-    q, k, v = inputs(("pround", causal, window), dtype, 1, 2048, 2048, 4, 1,
-                     128)
+def test_p_rounding_stays_within_the_card_tolerance(dtype, causal, window,
+                                                    heads):
+    """S = 2048 (as yi's and phi-3-vision's prefill) on the tensor-core
+    route's 128-key tiles, at each row of P_ROUND_HEADS: P rounded to 16
+    bits stays within FLASH_TOL."""
+    salt, Hq, Hkv, hd = P_ROUND_HEADS[heads]
+    q, k, v = inputs((salt, causal, window), dtype, 1, 2048, 2048, Hq, Hkv,
+                     hd)
     got = p_rounded(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())

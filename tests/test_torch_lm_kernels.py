@@ -72,6 +72,7 @@ def close(got, want, tol):
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
     (1, 128, 2, 2, 32), (2, 128, 4, 2, 32), (1, 256, 8, 1, 16),
+    (1, 128, 4, 4, 96),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_sweep(B, S, Hq, Hkv, hd, dtype):
