@@ -95,7 +95,32 @@ Phases, each fatal on failure:
    Then a profiled prefill (device busy share, attention's device time
    and share, and for recurrentgemma one layer's RG-LRU scan timed apart
    with its share of the prefill) and a profiled 4-step decode window;
-5. kernel phase: each kernel at the main path's shapes on the card (the
+5. training phase (``TRAIN_MODELS``), one config at a time after the LM
+   phase, the card freed between them: at the configs' own widths and
+   with random float32-store weights from ``--seed`` (conv taps as
+   upstream's), depth cut only where the AdamW state (16 bytes a
+   parameter) would not fit: ``yi-6b`` at 4 of 32 layers,
+   ``mamba2-1.3b`` whole, ``moonshot-v1-16b-a3b`` at 2 of 48,
+   ``recurrentgemma-9b`` at one group (RG-LRU, RG-LRU, local attention;
+   4096 tokens, past its window), ``whisper-tiny`` whole (B = 4, 1500
+   frames, 448 tokens padded to 512 with ignored labels) and
+   ``phi-3-vision-4.2b`` at 2 of 32 (576 patches + 1472 tokens); B = 2
+   sequences of 2048 tokens unless named.  Each LM kernel's wrapper,
+   handed a CUDA tensor that requires grad, must raise and launch
+   nothing.  Per config: the loss's central difference along a seeded
+   random direction against autograd's directional derivative, in
+   float32 with TF32 off (``GRAD_EPS``, relative error under
+   ``GRAD_TOL``; the loss's per-token terms summed in float64 on either
+   side, MoE routing pinned to the base forward's experts);
+   for yi-6b one step at ``accum=2`` against ``accum=1`` in float32 (the
+   loss within 1e-3, the two updates within 2e-3 of the update's norm);
+   8 AdamW steps (``TRAIN_OPT``) on one fixed batch in the config's
+   compute type, whose loss and gradient norm must be finite, the norm
+   positive and the last loss below the first; peak device memory
+   under 80 GB; no kernel launched over the config's whole run.  One
+   ``{"phase": "train"}`` line each with the losses, step times (median),
+   tokens per second and peak GB;
+6. kernel phase: each kernel at the main path's shapes on the card (the
    index-mirror merge's ranks at the largest shape the fact path gave
    them, the LM kernels at the prefill shapes of the LM phase),
    compared with its plain PyTorch version (bit-exact for the integer
@@ -128,7 +153,7 @@ Phases, each fatal on failure:
    route's hd-96 tiles, bf16 and fp16 (and a ragged non-causal case at
    its head layout in bf16 on that route, in float32 on the CUDA-core
    one), each beside SDPA;
-6. a ``{"kernels": [...]}`` line with every ported kernel's numbers
+7. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (``queued`` lists the kernels still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
    inputs (``simt_ms``) and counts yi's launches by route; its
@@ -142,7 +167,7 @@ Phases, each fatal on failure:
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
    (``bound_old_ms``) beside the TF32 one;
-7. the last line: ``{"ok": true, "device": {...}}``.
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
 and cuDNN) wherever a kernel is compared with its plain version.
@@ -155,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2155,7 +2181,7 @@ def check_logits(torch, model, params, ext, at: int, extra: dict):
                                          model.encode(params,
                                                       extra["frames"]))
         else:
-            h, _ = model.hidden(params, ext, **extra)
+            h, _, _ = model.hidden(params, ext, **extra)
         return model._logits(params, h[:, prefix_len(extra) + at, :])
 
 
@@ -2545,6 +2571,351 @@ def lm_prefill_profile(torch, arch: str, model, params, prompts,
     print(json.dumps(line), flush=True)
 
 
+# -- training phase -----------------------------------------------------------
+
+# (config, layers kept (None: all of them), batch, text tokens) of the
+# training phase.  Widths are the configs' own.  The float32 store's
+# training state (weight, gradient, m and v: 16 bytes a parameter) of
+# yi-6b (97.0 GB), moonshot-v1-16b-a3b (448.9 GB) and recurrentgemma-9b
+# (167.1 GB) does not fit on one card: yi-6b runs 4 of 32 layers (1.22 B
+# parameters), moonshot 2 of 48 (1.81 B), recurrentgemma one group of its
+# pattern (RG-LRU, RG-LRU, local attention: 2.75 B with its untied
+# 256k-row embedding and head).  phi-3-vision-4.2b's (61.1 GB) would,
+# barely; it runs 2 of 32 to keep the phase short.  mamba2-1.3b and
+# whisper-tiny run whole.  recurrentgemma's 4096 tokens pass its
+# 2048-key window; whisper's 448 tokens are its text context (over 1500
+# encoder frames), phi-3-vision's 1472 follow its 576 patches
+TRAIN_MODELS = [("yi-6b", 4, 2, 2048), ("mamba2-1.3b", None, 2, 2048),
+                ("moonshot-v1-16b-a3b", 2, 2, 2048),
+                ("recurrentgemma-9b", 3, 2, 4096),
+                ("whisper-tiny", None, 4, 448),
+                ("phi-3-vision-4.2b", 2, 2, 1472)]
+TRAIN_STEPS = 8
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 16}
+# the gradient check: (L(p + eps d) - L(p - eps d)) / 2 eps against
+# <g, d> in float32 with TF32 off; d is drawn leaf by leaf from a seeded
+# generator as N(0, 1) times the leaf's rms (at least 0.02), so eps is a
+# relative step of every weight.  The loss's third-order term along d
+# grows with the parameters perturbed (at eps = 1e-2 it is 3-14 % of
+# <g, d> at these widths), its float32 rounding with fewer: at 1e-3 both
+# stay under 4e-3 in every config (``tools/train_probe.py`` sweeps the
+# step), and ``rel_err_half_eps`` reads the same at eps / 2
+GRAD_EPS = 1e-3
+GRAD_TOL = 1e-2
+# accum=2 against accum=1 (yi-6b, float32): the loss at the reference
+# test's bound; the two steps' updates (new weights less the old) within
+# ACCUM_UPDATE_TOL of the update's L2 norm.  Adam's first step moves a
+# weight by lr * g / (|g| + eps), about lr in sign, so a weight whose
+# gradient lies near eps = 1e-8 moves by a fraction that the float32
+# noise between the two summations of its gradient can shift by much of
+# lr: the largest single difference is a reading (``max_over_lr``)
+ACCUM_LOSS_TOL = 1e-3
+ACCUM_UPDATE_TOL = 2e-3
+
+
+def train_config(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def train_batch(torch, cfg, seed: int, batch: int, seq: int,
+                device="cuda") -> dict:
+    """``batch`` rows of ``seq`` random text tokens and labels (numpy,
+    from ``seed``) with the family's frames or patches (``lm_inputs``).
+    Where the positions (patches included) are not a multiple of
+    ``cfg.logit_chunk`` (whisper: 448 over chunks of 256) the rows are
+    padded to one with token 0 and label -1: the decoder is causal and
+    ``chunked_ce`` skips label -1, so the loss is the unpadded one."""
+    import numpy as np
+
+    r = np.random.RandomState(seed + 3)
+    toks = r.randint(0, cfg.vocab, (batch, seq))
+    labels = r.randint(0, cfg.vocab, (batch, seq))
+    extra = lm_inputs(torch, cfg, seed, batch)
+    pad = -(prefix_len(extra) + seq) % cfg.logit_chunk
+    toks = np.pad(toks, ((0, 0), (0, pad)))
+    labels = np.pad(labels, ((0, 0), (0, pad)), constant_values=-1)
+    return {"tokens": torch.tensor(toks.astype(np.int32), device=device),
+            "labels": torch.tensor(labels.astype(np.int32), device=device),
+            **{k: v.to(device) for k, v in extra.items()}}
+
+
+def fresh_params(torch, model, seed: int, device="cuda"):
+    """The float32 store from ``seed``, conv taps drawn as upstream's."""
+    from repro_torch.models import init_params
+    params = init_params(model.spec(), seed, device=device)
+    seed_conv_taps(torch, params, seed)
+    return params
+
+
+def sorted_map(fn, tree):
+    """``fn`` over the leaves in ``tree_leaves``' order (dict keys
+    sorted), into a tree of the same layout."""
+    if isinstance(tree, dict):
+        return {k: sorted_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(sorted_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class PinnedRouting:
+    """Stands in for ``moe._top_k`` while the gradient check runs: with
+    ``mode = "record"`` it keeps each MoE layer's expert ids, with
+    ``"replay"`` it gives the layers those ids (and the probabilities at
+    them) in turn.  Top-k routing and the capacity drops are piecewise
+    constant in the weights; pinned, a perturbed forward stays on the
+    base forward's piece, where the loss is smooth and ``<g, d>`` is its
+    derivative."""
+
+    def __init__(self, moe):
+        self.moe, self.top_k = moe, moe._top_k
+        self.mode, self.ids, self.at = None, [], 0
+
+    def __enter__(self):
+        self.moe._top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k = self.top_k
+
+    def __call__(self, probs, k):
+        if self.mode == "replay":
+            idx = self.ids[self.at]
+            self.at += 1
+            return probs.gather(-1, idx), idx
+        w, idx = self.top_k(probs, k)
+        if self.mode == "record":
+            self.ids.append(idx)
+        return w, idx
+
+
+class Float64Sums:
+    """Stands in for ``chunked_ce`` (in ``models/transformer.py`` and
+    ``models/encdec.py``, whose ``loss_fn`` call it) while the gradient
+    check evaluates the loss on either side: the same per-token NLL
+    (``transformer.chunk_nll``), summed in float64.  The float32 sum of
+    ~4096 NLLs near ln V ~ 11 rounds the loss by a few 1e-6, as much as
+    the difference it must resolve; summed in float64 the loss keeps
+    only the forward's own float32 rounding, which averages over the
+    tokens."""
+
+    def __init__(self, torch):
+        from repro_torch.models import encdec, transformer
+        self.torch, self.mods = torch, (transformer, encdec)
+        self.ce, self.nll = transformer.chunked_ce, transformer.chunk_nll
+
+    def __enter__(self):
+        for m in self.mods:
+            m.chunked_ce = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.chunked_ce = self.ce
+
+    def __call__(self, h, head_w, labels, chunk, n_vocab=0):
+        chunk = min(chunk, h.shape[1])
+        w, labels = head_w.to(h.dtype), labels.long()
+        tot = sum(self.nll(h[:, s:s + chunk], w, labels[:, s:s + chunk],
+                           n_vocab).double().sum()
+                  for s in range(0, h.shape[1], chunk))
+        return tot, (labels >= 0).sum().to(self.torch.int32)
+
+
+def grad_check(torch, model, params, data, seed: int,
+               eps: float = GRAD_EPS, device="cuda") -> dict:
+    """The central difference of ``model.loss_fn`` along a random
+    direction d against ``<g, d>`` (autograd's gradient, as the train
+    step takes it), at ``params``, on the model's own compute type (the
+    caller passes a float32 one).  d is drawn from one seed, leaf by
+    leaf, each time it is needed, so only one leaf of it is held at a
+    time."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    scales = [max(float(p.float().pow(2).mean().sqrt()), 0.02)
+              for p in tree_leaves(params)]
+
+    def directions():
+        gen = torch.Generator(device=device).manual_seed(seed + 4)
+        for p, s in zip(tree_leaves(params), scales):
+            yield torch.randn(p.shape, generator=gen, device=device).mul_(s)
+
+    with PinnedRouting(moe) as pin:
+        pin.mode = "record"
+        with torch.no_grad():
+            base = float(model.loss_fn(params, data)[0])
+        pin.mode = None
+        loss, _, grads = loss_and_grads(model, params, data)
+        gd = sum(float(torch.sum(g * d, dtype=torch.float64))
+                 for g, d in zip(tree_leaves(grads), directions()))
+        del grads
+        side = []
+        for step in (eps, -eps, eps / 2, -eps / 2):
+            d = directions()
+            shifted = sorted_map(lambda p: p + step * next(d), params)
+            pin.mode, pin.at = "replay", 0
+            with torch.no_grad(), Float64Sums(torch):
+                side.append(float(model.loss_fn(shifted, data)[0]))
+            del shifted
+        pinned = len(pin.ids)
+    fd = (side[0] - side[1]) / (2 * eps)
+    fd_half = (side[2] - side[3]) / eps   # a reading: the convergence
+
+    def rel(x):
+        return abs(x - gd) / max(abs(gd), 1e-30)
+    return {"eps": eps, "loss": float(loss), "loss_no_grad": base,
+            "loss_plus": side[0], "loss_minus": side[1],
+            "central_difference": fd, "directional_derivative": gd,
+            "rel_err": rel(fd), "tol": GRAD_TOL,
+            "rel_err_half_eps": rel(fd_half), "pinned_moe_layers": pinned}
+
+
+def accum_check(torch, model, seed: int, data, device="cuda") -> dict:
+    """One train step with ``accum=2`` against one with ``accum=1`` from
+    the same fresh weights, on ``model``'s compute type (float32)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state)
+
+    out = []
+    for accum in (1, 2):
+        state = init_train_state(fresh_params(torch, model, seed, device))
+        state, met = build_train_step(model, OptimizerConfig(**TRAIN_OPT),
+                                      accum)(state, data)
+        out.append((state["params"], float(met["loss"]), float(met["lr"])))
+        del state
+    (p1, l1, lr), (p2, l2, _) = out
+    diff = norm = worst = 0.0
+    for a, b, p0 in zip(tree_leaves(p1), tree_leaves(p2), tree_leaves(
+            fresh_params(torch, model, seed, device))):
+        diff += float(torch.sum((a - b).double() ** 2))
+        norm += float(torch.sum((a - p0).double() ** 2))
+        worst = max(worst, float((a - b).abs().max()))
+    return {"loss_accum1": l1, "loss_accum2": l2,
+            "loss_err": abs(l1 - l2), "loss_tol": ACCUM_LOSS_TOL,
+            "update_rel_err": (diff / norm) ** 0.5,
+            "update_tol": ACCUM_UPDATE_TOL, "max_over_lr": worst / lr,
+            "lr": lr}
+
+
+def refuse_gradient(torch) -> None:
+    """Each LM kernel's wrapper, handed a CUDA tensor that requires grad,
+    raises and launches nothing (its kernel has no backward)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.ssd.ssd import ssd_intra
+
+    def req(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda").to(dtype).requires_grad_()
+    cum = torch.cumsum(-torch.rand(1, 2, 32, 2, device="cuda"), 2)
+    calls = {"flash_attention": (flash_attention, [
+        req(1, 64, 2, 64, dtype=torch.bfloat16) for _ in range(3)]),
+        "ssd_intra": (ssd_intra, [cum.requires_grad_(),
+                                  req(1, 2, 32, 2, 16), req(1, 2, 32, 16),
+                                  req(1, 2, 32, 16)])}
+    for name, (fn, args) in calls.items():
+        before = kernels.LAUNCHES[name]
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if "training route" not in str(e):
+                fail(f"{name}: a tensor that requires grad raised {e!r}")
+        else:
+            fail(f"{name} took a tensor that requires grad")
+        if kernels.LAUNCHES[name] != before:
+            fail(f"{name} launched on a tensor that requires grad")
+
+
+def train_phase(torch, seed: int, models=TRAIN_MODELS,
+                steps: int = TRAIN_STEPS, device="cuda") -> None:
+    """Train each config in turn on the card (module docstring, phase 5):
+    the gradient check, accumulation (yi-6b), ``steps`` AdamW steps on one
+    fixed batch; every gate fatal."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state)
+
+    t_phase = time.perf_counter()
+    refuse_gradient(torch)
+    for arch, layers, batch, seq in models:
+        cfg = train_config(arch, layers)
+        model = build_model(cfg, device=device)
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                              device=device)
+        n = param_count(model.spec())
+        data = train_batch(torch, cfg, seed, batch, seq, device)
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.counts()["launches"]
+        t0 = time.perf_counter()
+        params = fresh_params(torch, model, seed, device)
+        check = grad_check(torch, model32, params, data, seed, device=device)
+        accum = (accum_check(torch, model32, seed, data, device)
+                 if arch == "yi-6b" else None)
+        state = init_train_state(params)
+        del params
+        step = build_train_step(model, OptimizerConfig(**TRAIN_OPT))
+        losses, norms, lrs, step_ms = [], [], [], []
+        for _ in range(steps):
+            ts = time.perf_counter()
+            state, met = step(state, data)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            lrs.append(float(met["lr"]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after = kernels.counts()["launches"]
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        median_ms = statistics.median(step_ms)
+        line = {"phase": "train", "arch": arch,
+                "layers": [cfg.n_layers, get_config(arch).n_layers],
+                "d_model": cfg.d_model, "params": n,
+                "state_gb": 16 * n / 1e9, "compute": cfg.dtype,
+                "store": "float32", "batch": batch, "tokens": seq,
+                "positions": int(data["labels"].shape[1]) + prefix_len(data),
+                "inputs": {k: list(v.shape) for k, v in data.items()},
+                "losses": losses, "grad_norms": norms, "lrs": lrs,
+                "step_ms": step_ms, "step_ms_median": median_ms,
+                "tokens_per_s": batch * seq / (median_ms / 1e3),
+                "peak_device_gb": peak_gb, "grad_check": check,
+                "accum": accum, "launches": launched,
+                "seconds": time.perf_counter() - t0, "card": card_line()}
+        print(json.dumps(line), flush=True)
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"train {arch}: loss or grad norm not finite")
+        if min(norms) <= 0:
+            fail(f"train {arch}: a zero gradient norm")
+        if not losses[-1] < losses[0]:
+            fail(f"train {arch}: loss {losses[0]} -> {losses[-1]} over "
+                 f"{steps} steps on one batch")
+        if not check["rel_err"] <= GRAD_TOL:
+            fail(f"train {arch}: central difference {check} off the "
+                 "gradient")
+        if accum and not (accum["loss_err"] <= accum["loss_tol"]
+                          and accum["update_rel_err"] <= accum["update_tol"]):
+            fail(f"train {arch}: accum 2 differs from accum 1: {accum}")
+        if peak_gb >= 80:
+            fail(f"train {arch}: peak device memory {peak_gb} GB")
+        if launched:
+            fail(f"train {arch}: the training route launched {launched}")
+        del state, step, data, model, model32
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "train_all", "seconds":
+                      time.perf_counter() - t_phase}), flush=True)
+
+
 KERNELS = [
     {"name": "bitonic_sort", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/bitonic_sort.cu",
@@ -2667,6 +3038,7 @@ def main() -> int:
         if v["launches"] <= 0:
             fail(f"kernel row {row} never launched in the LM phase")
     launches.update({row: v["launches"] for row, v in lm.items()})
+    train_phase(torch, args.seed)
     rows = kernel_phase(torch, args.seed, args.reps, sorted(set(shapes)),
                         sizes)
 

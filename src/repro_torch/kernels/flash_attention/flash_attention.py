@@ -117,7 +117,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``offset`` (default ``Skv - Sq``) is the absolute position of query
     row 0.  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel ``_route`` names or raises."""
+    the kernel ``_route`` names or raises — also when it requires grad,
+    since the kernel has no backward."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      offset=offset)
@@ -134,6 +135,12 @@ def launch_route(route: str, q: torch.Tensor, k: torch.Tensor,
     times the CUDA-core kernel on 16-bit inputs names ``"simt"``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward and would drop "
+            "the gradient; train through the training route "
+            "(attention(..., train=True), which runs chunked_attention, "
+            "as loss_fn does)")
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     lib_name, entries = _ENTRY[route]

@@ -125,11 +125,19 @@ def ssd_intra(cum: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
 
     -> (y_intra [b,nc,Q,nh,hp], states [b,nc,nh,hp,N]), float32.  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    raises — also when it requires grad, since the kernel has no
+    backward."""
     if cum.device.type == "cpu":
         return ssd_intra_plain(cum, u, B, C)
     if cum.device.type != "cuda":
         raise ValueError(f"ssd_intra: unsupported device {cum.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (cum, u, B, C)):
+        raise RuntimeError(
+            "ssd_intra: the kernel has no backward and would drop the "
+            "gradient; train through the training route "
+            "(apply_ssd(..., train=True), the reference's chunk scan, as "
+            "loss_fn does)")
     b, nc, Q, nh = cum.shape
     hp, N = u.shape[-1], B.shape[-1]
     ts = (cum, u, B, C)

@@ -1,4 +1,4 @@
-"""Encoder-decoder LM (whisper-tiny backbone): the serving path.
+"""Encoder-decoder LM (whisper-tiny backbone).
 
 Port of the reference ``models/encdec.py``.  The audio frontend (log-mel
 and two convolutions) is a stub there and here: ``frames`` are
@@ -9,18 +9,23 @@ and a GELU MLP.  Positions are sinusoidal on both sides (the reference
 replaces whisper's learned decoder positions with the same table).
 The output head is the embedding, transposed.
 
-Entry points: ``encode``, ``prefill_fn(params, tokens, max_len,
-frames)`` (last-position logits and a decode cache sized ``max_len``)
-and ``decode_fn``.  The cache holds each decoder layer's self-attention
+Entry points: ``loss_fn`` (the decoder's chunked cross-entropy, as
+``models/transformer.py``'s), ``encode``, ``prefill_fn(params, tokens,
+max_len, frames)`` (last-position logits and a decode cache sized
+``max_len``) and ``decode_fn``.  The cache holds each decoder layer's self-attention
 K/V (``k``, ``v``: a row per decoded token) and its cross-attention K/V
 of the encoder output (``xk``, ``xv``: computed once by the prefill,
 static after), stacked over layers, beside ``lens``.  The param and
 cache trees keep the reference's layout.
 
+Training route (``train=True``, set by ``loss_fn``): each encoder and
+decoder layer is rematerialized (``layers.remat``, the reference's
+``jax.checkpoint`` of its scan bodies) and attention takes the
+reference's ``chunked_attention``, not the kernel.
+
 In place: ``decode_fn`` writes each layer's new K/V row into the cache
-it is given and returns that cache with ``lens`` advanced.  No remat:
-serving keeps no activations for a backward pass.  The training entry
-point ``loss_fn`` raises ``NotImplementedError`` (ROADMAP A11.4).
+it is given and returns that cache with ``lens`` advanced.  No remat
+when serving: it keeps no activations for a backward pass.
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
                                        attention_spec, decode_attention,
                                        dense, layernorm_spec, mlp_spec,
-                                       sinusoidal_rows, sinusoidal_table)
+                                       remat, sinusoidal_rows,
+                                       sinusoidal_table)
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_map)
 from repro_torch.models.transformer import (_attn_cache_from_prefill,
                                             _attn_part, _embed_tokens,
-                                            _layer, attn_decode)
+                                            _layer, _unstack, attn_decode,
+                                            chunked_ce)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -98,12 +105,12 @@ def _add_positions(h: torch.Tensor) -> torch.Tensor:
         h.dtype)
 
 
-def _xattn(p, h, xk, xv, cfg):
+def _xattn(p, h, xk, xv, cfg, train=False):
     """Cross-attention with precomputed K/V from the encoder output."""
     x = apply_norm(p["lnx"], h, cfg.norm)
     B, S, _ = x.shape
     q = dense(p["xattn"]["q"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    a = attention(q, xk, xv, cfg, causal=False)
+    a = attention(q, xk, xv, cfg, causal=False, train=train)
     return h + dense(p["xattn"]["o"], a.reshape(B, S, -1))
 
 
@@ -145,29 +152,43 @@ class EncDecLM:
         return (h @ self.head_w(params).to(h.dtype))[:, : self.cfg.vocab]
 
     # -- encoder -------------------------------------------------------------
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
-        """frames [B,enc_seq,d] -> encoder output [B,enc_seq,d]."""
+    def encode(self, params, frames: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+        """frames [B,enc_seq,d] -> encoder output [B,enc_seq,d];
+        ``train``: the training route (module docstring)."""
         cfg = self.cfg
         h = _add_positions(frames.to(DTYPES[cfg.dtype]))
-        for i in range(cfg.n_enc_layers):
-            bp = _layer(params["enc_blocks"], i)
-            h, _ = _attn_part(bp, h, cfg, None, causal=False)
-            h = _mlp_part(bp, h, cfg)
+
+        def body(h, bp):
+            h, _ = _attn_part(bp, h, cfg, None, causal=False, train=train)
+            return _mlp_part(bp, h, cfg)
+
+        for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
+            h = remat(body, h, bp) if train else body(h, bp)
         return apply_norm(params["enc_norm"], h, cfg.norm)
 
     # -- decoder (sequence form) -----------------------------------------------
     def _decoder_hidden(self, params, tokens, enc_out,
-                        collect_cache: bool = False, max_len: int = 0):
+                        collect_cache: bool = False, max_len: int = 0,
+                        train: bool = False):
         """tokens [B,S] against ``enc_out`` -> (h [B,S,d] after the final
-        norm, the stacked cache layers | None)."""
+        norm, the stacked cache layers | None); ``train``: the training
+        route."""
         cfg = self.cfg
         h = _add_positions(_embed_tokens(params, tokens, cfg))
-        caches = []
-        for i in range(cfg.n_layers):
-            bp = _layer(params["dec_blocks"], i)
-            h, (k, v) = _attn_part(bp, h, cfg, None)
+
+        def body(h, bp):
+            h, (k, v) = _attn_part(bp, h, cfg, None, train=train)
             xk, xv = _enc_kv(bp, enc_out, cfg)
-            h = _mlp_part(bp, _xattn(bp, h, xk, xv, cfg), cfg)
+            h = _mlp_part(bp, _xattn(bp, h, xk, xv, cfg, train), cfg)
+            return h, (k, v, xk, xv)
+
+        caches = []
+        for bp in _unstack(params["dec_blocks"], cfg.n_layers):
+            if train:
+                h = remat(lambda h, bp: body(h, bp)[0], h, bp)
+                continue
+            h, (k, v, xk, xv) = body(h, bp)
             if collect_cache:
                 caches.append({**_attn_cache_from_prefill(
                     k, v, BlockKind.ATTN, cfg, max_len), "xk": xk,
@@ -178,10 +199,22 @@ class EncDecLM:
         return h, tree_map(lambda *xs: torch.stack(xs), caches[0],
                            *caches[1:])
 
-    # -- serving ---------------------------------------------------------------
+    # -- training ----------------------------------------------------------------
     def loss_fn(self, params, batch):
-        raise NotImplementedError("training (loss_fn, chunked_ce) is not "
-                                  "ported yet (ROADMAP A11.4)")
+        """batch: {frames [B,Se,d], tokens [B,S], labels [B,S] (-1: no
+        loss)} -> (loss, {"nll", "tokens", "aux"}): the mean NLL over the
+        labelled tokens; ``aux`` is 0 (no experts)."""
+        enc_out = self.encode(params, batch["frames"], train=True)
+        h, _ = self._decoder_hidden(params, batch["tokens"], enc_out,
+                                    train=True)
+        tot, cnt = chunked_ce(h, self.head_w(params), batch["labels"],
+                              self.cfg.logit_chunk, self.cfg.vocab)
+        loss = tot / torch.clamp(cnt, min=1)
+        return loss, {"nll": tot, "tokens": cnt,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=h.device)}
+
+    # -- serving ---------------------------------------------------------------
 
     @torch.no_grad()
     def prefill_fn(self, params, tokens, max_len: int, frames):

@@ -7,12 +7,18 @@ implementations:
 
 * ``full_attention``    — materialized scores; short sequences only.
 * ``chunked_attention`` — the reference's flash-style chunked attention in
-  plain torch (``masked`` and ``triangular``), kept as the oracle of the
-  chunked branch.
+  plain torch (``masked`` and ``triangular``), rematerialized per query
+  chunk and per kv step as the reference's is, so its backward never
+  keeps the score stack.  It is the oracle of the kernel branch and the
+  training route.
 * ``attention()``'s chunked branch calls ``fused_attention``
   (``kernels/flash_attention/ops.py``), which computes the same function
   through the hand-written kernel on a CUDA tensor — what the
-  reference's ``fused_attention`` does through the Pallas kernel on a TPU.
+  reference's ``fused_attention`` does through the Pallas kernel on a
+  TPU.  The kernel has no backward, so ``attention(..., train=True)``
+  (the loss's forward) takes ``chunked_attention``, the reference's own
+  route, and the kernel's wrapper raises when handed a tensor that
+  requires grad.
 
 The reference's ``Hints`` (activation sharding constraints) have no
 counterpart yet: the LM's sharding is ROADMAP A11.5.
@@ -24,6 +30,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import fused_attention
 from repro_torch.models.params import normal, ones, zeros
@@ -207,6 +214,13 @@ def _finish(m, l, acc, B, qc, Hkv, G, hd, dtype):
     return out.reshape(B, qc, Hkv * G, hd).to(dtype)
 
 
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (the reference's ``jax.checkpoint``); a forward
+    without autograd just runs it."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       q_chunk: int = 1024, kv_chunk: int = 1024,
                       impl: str = "triangular") -> torch.Tensor:
@@ -215,7 +229,10 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     q [B,Sq,Hq,hd]; k,v [B,Skv,Hkv,hd].  The queries sit at the end of
     the kv range (``offset = Skv - Sq``); both sides pad to chunk
-    multiples and padded keys are masked.
+    multiples and padded keys are masked.  Each query chunk and each of
+    its kv steps is rematerialized (``remat``), as the reference's
+    ``jax.checkpoint``s are: the backward keeps one query chunk's carry
+    per kv step, never its scores.
     """
     B, Sq0, Hq, hd = q.shape
     Skv0, Hkv = k.shape[1], k.shape[2]
@@ -246,17 +263,20 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
             return torch.where(m, s, -math.inf)
         return mask_fn
 
-    def one_q_chunk(q_start, lo, hi):
+    def one_q_chunk(q_start, lo, hi, q, k, v):
         """Attend one query chunk against kv chunks ``lo..hi-1``."""
         q5 = q[:, q_start:q_start + q_chunk].reshape(B, q_chunk, Hkv, G, hd)
         carry = (torch.full((B, Hkv, G, q_chunk), -math.inf, device=dev),
                  torch.zeros((B, Hkv, G, q_chunk), device=dev),
                  torch.zeros((B, Hkv, G, q_chunk, hd), device=dev))
         mask_fn = make_mask_fn(q_start)
+
+        def step(m, l, acc, k_c, v_c, ks):
+            return _online_step((m, l, acc), k_c, v_c, ks, q5, mask_fn, hd)
         for j in range(lo, hi):
             ks = j * kv_chunk
-            carry = _online_step(carry, k[:, ks:ks + kv_chunk],
-                                 v[:, ks:ks + kv_chunk], ks, q5, mask_fn, hd)
+            carry = remat(step, *carry, k[:, ks:ks + kv_chunk],
+                          v[:, ks:ks + kv_chunk], ks)
         return _finish(*carry, B, q_chunk, Hkv, G, hd, q.dtype)
 
     outs = []
@@ -273,15 +293,16 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 lo = max(0, (q_start + offset - (window - 1)) // kv_chunk)
             lo = min(lo, max(hi - 1, 0))
             hi = max(hi, lo + 1)
-        outs.append(one_q_chunk(q_start, lo, hi))
+        outs.append(remat(one_q_chunk, q_start, lo, hi, q, k, v))
     out = torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd)
     return out[:, :Sq0]
 
 
-def attention(q, k, v, cfg, *, causal: bool = True,
-              window: int = 0) -> torch.Tensor:
-    """Dispatch on sequence length: full for short, the fused (kernel)
-    chunked form otherwise."""
+def attention(q, k, v, cfg, *, causal: bool = True, window: int = 0,
+              train: bool = False) -> torch.Tensor:
+    """Dispatch on sequence length: full for short, chunked otherwise —
+    the fused (kernel) form when serving, the reference's
+    ``chunked_attention`` with the config's chunks when ``train``."""
     if (cfg.pad_q_heads or cfg.repeat_kv) and q.shape[2] != k.shape[2]:
         # the reference's repeated-KV (MHA) layout for TP-padded heads
         G = q.shape[2] // k.shape[2]
@@ -290,6 +311,10 @@ def attention(q, k, v, cfg, *, causal: bool = True,
     Sq, Skv = q.shape[1], k.shape[1]
     if Skv <= min(1024, cfg.kv_chunk) and Sq == Skv:
         return full_attention(q, k, v, causal=causal, window=window)
+    if train:
+        return chunked_attention(
+            q, k, v, causal=causal, window=window, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk, impl="triangular" if causal else "masked")
     return fused_attention(q, k, v, causal=causal, window=window)
 
 

@@ -10,7 +10,10 @@ computed per chunk of Q positions.  The reference inlines the chunk math
 in a ``lax.scan``; here ``apply_ssd`` builds the same chunk views and
 calls ``ssd_chunked`` (``kernels/ssd/ops.py``): the intra-chunk term
 through the ``ssd_intra`` kernel, the inter-chunk recurrence as a loop
-over chunks.  Decode is the O(1)-state single-step recurrence.
+over chunks.  The kernel has no backward, so the training route
+(``train=True``) runs the reference's own chunk scan (``_chunk_scan``),
+each chunk rematerialized as the reference's ``jax.checkpoint`` does.
+Decode is the O(1)-state single-step recurrence.
 
 Layout: x is split into ``nh`` heads of ``hp = ssm_head_dim``; the state
 is ``[B, nh, hp, N]``.
@@ -18,11 +21,13 @@ is ``[B, nh, hp, N]``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd.ops import ssd_chunked
-from repro_torch.models.layers import apply_norm, dense, dense_spec
+from repro_torch.models.layers import apply_norm, dense, dense_spec, remat
 from repro_torch.models.params import LeafSpec, ones, zeros
 
 F32 = torch.float32
@@ -85,9 +90,51 @@ def _split_conv(conv_out, cfg):
     return xc, Bc, Cc
 
 
+def _chunk_step(h, cq, uq, Bq, Cq):
+    """One chunk of the reference's scan: h [B,nh,hp,N] the state before
+    it; cq [B,Q,nh] the within-chunk cumulative log decay, uq
+    [B,Q,nh,hp], Bq/Cq [B,Q,N] -> (h after it, y [B,Q,nh,hp]).
+
+    The decay ``exp(cq_q - cq_k)`` is masked before the ``exp`` (to
+    ``-inf`` above the diagonal), where the reference masks after it:
+    the same values, but above the diagonal ``cq_q - cq_k`` is positive
+    and its ``exp`` overflows to inf at full width, where the
+    reference's backward then gives the masked entries ``0 * inf =
+    NaN``."""
+    Q = cq.shape[1]
+    # intra-chunk (the kernel's part): masked decay-weighted gram
+    gram = torch.einsum("bqn,bkn->bqk", Cq, Bq)                # [B,Q,Q]
+    decay = cq[:, :, None, :] - cq[:, None, :, :]               # [B,Q,K,nh]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cq.device).tril()
+    M = torch.exp(torch.where(mask[None, :, :, None], decay, -math.inf)) \
+        * gram[..., None]
+    y_intra = torch.einsum("bqkh,bkhp->bqhp", M, uq)
+    # inter-chunk: contribution of the carried state
+    y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", Cq, h, torch.exp(cq))
+    # state update: h' = a_total * h + sum_j exp(cum_Q - cum_j) B_j u_j
+    a_tot = torch.exp(cq[:, -1, :])                             # [B,nh]
+    w_j = torch.exp(cq[:, -1, None, :] - cq)                    # [B,Q,nh]
+    dh = torch.einsum("bqh,bqhp,bqn->bhpn", w_j, uq, Bq)
+    return a_tot[:, :, None, None] * h + dh, y_intra + y_inter
+
+
+def _chunk_scan(cum, u_c, B_cn, C_cn, h0):
+    """The reference's chunk scan over chunked views (``ssd_chunked``'s
+    arguments) -> (y [b,nc,Q,nh,hp], h_last [b,nh,hp,N])."""
+    b, nc = cum.shape[:2]
+    h = h0
+    ys = []
+    for c in range(nc):
+        h, y = remat(_chunk_step, h, cum[:, c], u_c[:, c], B_cn[:, c],
+                     C_cn[:, c])
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
 def apply_ssd(p: dict, x: torch.Tensor, cfg, state0=None,
-              return_state: bool = False):
-    """Sequence form (prefill). x [B,S,d] -> y [B,S,d]."""
+              return_state: bool = False, train: bool = False):
+    """Sequence form (train/prefill). x [B,S,d] -> y [B,S,d].  ``train``
+    takes the reference's chunk scan in place of the kernel."""
     B, S0, d = x.shape
     di, nh, hp, N = dims(cfg)
     Q = min(cfg.ssm_chunk, S0)
@@ -121,7 +168,12 @@ def apply_ssd(p: dict, x: torch.Tensor, cfg, state0=None,
     cum = torch.cumsum(dlog_c, dim=2)                            # [B,nc,Q,nh]
 
     h0 = None if state0 is None else state0["ssm"]
-    y, h_last = ssd_chunked(cum, u_c, B_cn, C_cn, h0)
+    if train:
+        if h0 is None:
+            h0 = torch.zeros((B, nh, hp, N), dtype=F32, device=x.device)
+        y, h_last = _chunk_scan(cum, u_c, B_cn, C_cn, h0)
+    else:
+        y, h_last = ssd_chunked(cum, u_c, B_cn, C_cn, h0)
     y = y.reshape(B, S, nh, hp)
     y = y + p["d_skip"].to(F32)[:, None] * xh.to(F32)
 

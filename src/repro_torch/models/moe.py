@@ -85,6 +85,13 @@ def _route(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """Each row's ``k`` most probable experts -> (their probabilities,
+    their ids) [T, k].  A function of its own, as ``_route`` is, so that
+    a check can hold the choice fixed while it moves the weights."""
+    return torch.topk(probs, k, dim=-1)
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg, expert_shards: int = 1
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] -> (y [B,S,d] in x's dtype, the Switch load-balancing
@@ -104,7 +111,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, expert_shards: int = 1
 
     # -- routing (float32 for a stable softmax) ---------------------------
     probs = _route(xf, p["router"]["w"])                     # [T, E]
-    top_w, top_e = torch.topk(probs, k, dim=-1)              # [T, k]
+    top_w, top_e = _top_k(probs, k)                          # [T, k]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
     # aux load-balancing loss (Switch-style)

@@ -13,8 +13,12 @@ the Real-Gated LRU::
 The sequence form runs the linear recurrence as a log-depth scan
 (``_linear_scan``: Hillis-Steele, ceil(log2 S) elementwise passes), where
 the reference runs ``jax.lax.associative_scan`` in XLA; no Pallas kernel
-is involved in either.  Decode is the single-step recurrence with an
-O(1) state.  The recurrence runs in float32.
+is involved in either.  The serving scan rewrites one copy of a and b in
+place, which autograd cannot differentiate (each pass bumps the version
+of tensors the previous pass saved); the training route (``train=True``)
+runs the same passes out of place (``_linear_scan_train``).  Decode is
+the single-step recurrence with an O(1) state.  The recurrence runs in
+float32.
 """
 
 from __future__ import annotations
@@ -96,15 +100,34 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor,
     return b
 
 
+def _linear_scan_train(a: torch.Tensor, b: torch.Tensor,
+                       h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``_linear_scan``'s passes out of place: each pass makes new a and
+    b (its first ``off`` positions carried over), so autograd keeps every
+    pass's inputs and differentiates them."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b = torch.cat([b[:, :off],
+                       torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])],
+                      dim=1)
+        if 2 * off < S:  # the last pass needs no composed decay
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
 def apply_rglru(p: dict, x: torch.Tensor, cfg,
                 h0: torch.Tensor | None = None,
                 conv0: torch.Tensor | None = None,
-                return_state: bool = False):
+                return_state: bool = False, train: bool = False):
     """Sequence form. x [B,S,d] -> y [B,S,d] (+ (h [B,dr] float32, conv
     state) with ``return_state``).  ``conv0`` [B,W-1,dr] is the conv
     history a continued prefill prepends.  The conv state is the last
     W-1 rows of ``dense(in_x, x)`` — of this call's x alone, as the
-    reference takes it."""
+    reference takes it.  ``train`` takes the out-of-place scan."""
     W = cfg.rglru_conv_width
     gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
     u_in = dense(p["in_x"], x)
@@ -114,7 +137,7 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg,
     else:
         u = _causal_depthwise_conv(u_in, p["conv_w"], p["conv_b"])
     a, b = _gates(p, u)
-    h = _linear_scan(a, b, h0)
+    h = (_linear_scan_train if train else _linear_scan)(a, b, h0)
     y = dense(p["out"], (gate.float() * h).to(x.dtype))
     if return_state:
         return y, (h[:, -1, :], u_in[:, -(W - 1):, :])

@@ -1,12 +1,14 @@
-"""Decoder-only LM for the dense, MoE, SSM, hybrid and VLM families: the
-serving path.
+"""Decoder-only LM for the dense, MoE, SSM, hybrid and VLM families.
 
 Port of the reference ``models/transformer.py``: token embedding (for
-the VLM family behind a prefix of precomputed patch embeddings), a loop
-over the stacked repeating block groups (the reference's ``lax.scan``)
-and then the tail blocks, final norm, and last-position logits.  Two
-entry points serve a model:
+the VLM family behind a prefix of precomputed patch embeddings), the
+sinusoidal table where ``cfg.pos`` asks for it, a loop over the stacked
+repeating block groups (the reference's ``lax.scan``) and then the tail
+blocks, final norm.  Three entry points:
 
+  ``loss_fn``    — training loss: ``hidden(..., train=True)``, then the
+                   seq-chunked cross-entropy ``chunked_ce`` (never the
+                   full ``[B,S,V]`` logits) plus MoE's Switch aux loss
   ``prefill_fn`` — forward over a prompt (``patches`` [B,P,d] in front
                    of the VLM's tokens); returns last-position logits and
                    a decode cache sized ``max_len``
@@ -14,26 +16,31 @@ entry points serve a model:
 
 Every block kind is ported: ``ATTN``, ``MOE`` (attention, then the
 capacity-bounded expert FFN of ``models/moe.py`` in place of the MLP;
-its aux loss is dropped, since serving has no loss), ``SSM``,
+``apply_block`` returns its aux loss and ``trunk`` sums it), ``SSM``,
 ``RECURRENT`` (RG-LRU) and ``LOCAL_ATTN`` (sliding-window attention with
-a ring cache).  The training entry point ``loss_fn`` raises
-``NotImplementedError`` (ROADMAP A11.4).  Sinusoidal positions belong to
-the enc-dec family (``models/encdec.py``); no config of these families
-has them.  The param and cache trees keep the
-reference's layout (stacked ``blocks``/``layers`` with a leading group
-dim, a ``tail`` list), so carrying weights across is a plain map; the
-weights may be held in the float32 store or the 16-bit one
-(``models/params.py``), which compute the same bits.
+a ring cache).  The param and cache trees keep the reference's layout
+(stacked ``blocks``/``layers`` with a leading group dim, a ``tail``
+list), so carrying weights across is a plain map; the weights may be
+held in the float32 store or the 16-bit one (``models/params.py``),
+which compute the same bits.
+
+Training route (``train=True``, set by ``loss_fn``): each block group is
+rematerialized (``layers.remat``, the reference's ``jax.checkpoint`` of
+its scan body), attention takes the reference's ``chunked_attention``,
+the SSD block its own chunk scan and the RG-LRU block an out-of-place
+scan — no hand-written kernel, since none has a backward (the reference
+trains through none either).  Serving keeps the kernels.
 
 In place: ``decode_fn`` writes each layer's new K/V row (and ring
 position) into the cache it is given (the reference's ``.at[].set``
 makes new arrays), copies each fresh SSM and RG-LRU state into it, and
-returns that cache with ``lens`` advanced.  No remat: serving keeps no
-activations for a backward pass.
+returns that cache with ``lens`` advanced.  No remat when serving: it
+keeps no activations for a backward pass.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -43,7 +50,8 @@ from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
                                        attention_spec, decode_attention,
                                        dense, layernorm_spec, mlp_spec,
-                                       project_qkv, rmsnorm_spec)
+                                       project_qkv, remat, rmsnorm_spec,
+                                       sinusoidal_rows, sinusoidal_table)
 from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
                                        mamba2_spec, ssd_decode_step)
 from repro_torch.models.moe import apply_moe, moe_spec
@@ -107,54 +115,66 @@ def model_spec(cfg: ArchConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Block application — prefill sequence form
+# Block application — train/prefill sequence form
 
 
-def _attn_part(p, h, cfg, positions, window=0, causal=True):
+def _attn_part(p, h, cfg, positions, window=0, causal=True, train=False):
     """Pre-norm self-attention with its residual -> (h', (k, v))."""
     x = apply_norm(p["ln1"], h, cfg.norm)
     q, k, v = project_qkv(p["attn"], x, cfg, positions)
-    a = attention(q, k, v, cfg, causal=causal, window=window)
+    a = attention(q, k, v, cfg, causal=causal, window=window, train=train)
     B, S = a.shape[:2]
     return h + dense(p["attn"]["o"], a.reshape(B, S, -1)), (k, v)
 
 
 def apply_block(p: dict, h: torch.Tensor, kind: BlockKind, cfg: ArchConfig,
-                positions, collect_cache: bool = False, max_len: int = 0):
-    """-> (h', cache_entry) — cache entry only when collect_cache."""
+                positions, collect_cache: bool = False, max_len: int = 0,
+                train: bool = False):
+    """-> (h', aux, cache_entry): ``aux`` is the MoE block's Switch aux
+    loss (a float32 zero for every other kind), the cache entry only when
+    collect_cache.  ``train`` takes the training route (module
+    docstring)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = None
     if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.MOE):
         window = cfg.window if kind == BlockKind.LOCAL_ATTN else 0
-        h, (k, v) = _attn_part(p, h, cfg, positions, window)
-        h = h + _ffn(p, apply_norm(p["ln2"], h, cfg.norm), kind, cfg)
+        h, (k, v) = _attn_part(p, h, cfg, positions, window, train=train)
+        x2 = apply_norm(p["ln2"], h, cfg.norm)
+        if kind == BlockKind.MOE:
+            y, aux = apply_moe(p["moe"], x2, cfg)
+        else:
+            y = apply_mlp(p["mlp"], x2, cfg)
+        h = h + y
         if collect_cache:
             cache = _attn_cache_from_prefill(k, v, kind, cfg, max_len)
     elif kind == BlockKind.SSM:
         x = apply_norm(p["ln"], h, cfg.norm)
         if collect_cache:
-            y, cache = apply_ssd(p["ssm"], x, cfg, return_state=True)
+            y, cache = apply_ssd(p["ssm"], x, cfg, return_state=True,
+                                 train=train)
         else:
-            y = apply_ssd(p["ssm"], x, cfg)
+            y = apply_ssd(p["ssm"], x, cfg, train=train)
         h = h + y
     elif kind == BlockKind.RECURRENT:
         x = apply_norm(p["ln1"], h, cfg.norm)
         if collect_cache:
             y, (hstate, conv) = apply_rglru(p["rglru"], x, cfg,
-                                            return_state=True)
+                                            return_state=True, train=train)
             cache = {"h": hstate, "conv": conv}
         else:
-            y = apply_rglru(p["rglru"], x, cfg)
+            y = apply_rglru(p["rglru"], x, cfg, train=train)
         h = h + y
         x2 = apply_norm(p["ln2"], h, cfg.norm)
         h = h + apply_mlp(p["mlp"], x2, cfg)
     else:
         raise ValueError(kind)
-    return h, cache
+    return h, aux, cache
 
 
 def _ffn(p, x, kind, cfg):
-    """The feed-forward half of an attention block: the experts for
-    ``MOE`` (aux loss dropped), else the MLP."""
+    """The feed-forward half of a decode step's attention block: the
+    experts for ``MOE`` (its aux loss unused: decoding has no loss), else
+    the MLP."""
     if kind == BlockKind.MOE:
         return apply_moe(p["moe"], x, cfg)[0]
     return apply_mlp(p["mlp"], x, cfg)
@@ -304,38 +324,124 @@ def _layer(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, one ``unbind`` a leaf (views,
+    no copies): under autograd each leaf's layer gradients are stacked
+    once, where ``n`` separate ``_layer`` selects would each make a
+    zero-filled gradient of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _embed_tokens(params, tokens, cfg):
     # gather the rows, then cast: the reference casts the whole table
     # first, which gives the same values
     return params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
 
 
+def _add_positional(h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The sinusoidal table over all of ``h``'s positions (the VLM's
+    patches included), where ``cfg.pos`` asks for it."""
+    if cfg.pos == "sinusoidal":
+        h = h + sinusoidal_table(h.shape[1], h.shape[-1], h.device).to(
+            h.dtype)
+    return h
+
+
 def trunk(params: dict, h: torch.Tensor, cfg: ArchConfig, positions,
-          collect_cache: bool = False, max_len: int = 0):
-    """Run the block groups, then the tail. -> (h, cache|None); the
-    groups' collected cache is stacked per group, as the reference's scan
-    stacks it, and the tail's is a list."""
+          collect_cache: bool = False, max_len: int = 0,
+          train: bool = False):
+    """Run the block groups, then the tail. -> (h, aux, cache|None): the
+    blocks' aux losses summed; the groups' collected cache is stacked per
+    group, as the reference's scan stacks it, and the tail's is a list.
+    ``train`` rematerializes each group (the reference checkpoints its
+    scan body whenever it collects no cache) on the training route."""
     group, n_groups, tail = _layer_groups(cfg)
-    caches = []
-    for gi in range(n_groups):
-        gp = _layer(params["blocks"], gi)
-        gc = {}
+
+    def group_body(h, gp):
+        aux, gc = torch.zeros((), dtype=torch.float32, device=h.device), {}
         for i, kind in enumerate(group):
-            h, gc[f"b{i}"] = apply_block(gp[f"b{i}"], h, kind, cfg,
-                                         positions, collect_cache, max_len)
-        caches.append(gc)
+            h, a, gc[f"b{i}"] = apply_block(gp[f"b{i}"], h, kind, cfg,
+                                            positions, collect_cache,
+                                            max_len, train)
+            aux = aux + a
+        return h, aux, gc
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = []
+    for gp in _unstack(params["blocks"], n_groups):
+        if train:
+            h, a = remat(lambda h, gp: group_body(h, gp)[:2], h, gp)
+        else:
+            h, a, gc = group_body(h, gp)
+            caches.append(gc)
+        aux = aux + a
     tail_caches = []
     for i, kind in enumerate(tail):
-        h, c = apply_block(params["tail"][i], h, kind, cfg, positions,
-                           collect_cache, max_len)
+        h, a, c = apply_block(params["tail"][i], h, kind, cfg, positions,
+                              collect_cache, max_len, train)
+        aux = aux + a
         tail_caches.append(c)
     if not collect_cache:
-        return h, None
+        return h, aux, None
     cache = {"layers": tree_map(lambda *xs: torch.stack(xs), caches[0],
                                 *caches[1:])}
     if tail:
         cache["tail"] = tail_caches
-    return h, cache
+    return h, aux, cache
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked CE)
+
+
+def chunked_ce(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+               chunk: int, n_vocab: int = 0):
+    """h [B,S,d] vs labels [B,S] (-1 = ignore) -> (sum_nll float32,
+    n_valid int32), each a scalar.
+
+    One chunk of ``chunk`` positions at a time: its logits in float32
+    (products of ``h``'s dtype, exact in float32, as the reference's
+    ``preferred_element_type``), rematerialized (``remat``) so the
+    backward never keeps more than one chunk's logits.  ``n_vocab``: the
+    real vocab size; the logits of padded ids (``cfg.vocab_pad``) are
+    masked out of the softmax.  S must be a multiple of ``chunk`` (or
+    smaller), as the reference asserts."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    w = head_w.to(h.dtype)
+    labels = labels.long()
+
+    def body(h_c, l_c):
+        return chunk_nll(h_c, w, l_c, n_vocab).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, S, chunk):
+        tot = tot + remat(body, h[:, s:s + chunk], labels[:, s:s + chunk])
+    cnt = (labels >= 0).sum().to(torch.int32)
+    return tot, cnt
+
+
+def chunk_nll(h_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor,
+              n_vocab: int = 0) -> torch.Tensor:
+    """One chunk's per-token NLL [B, chunk], float32, 0 where the label
+    is -1: h_c [B,chunk,d] against the head ``w`` [d,V] (both in the
+    compute type), logits of padded ids (``n_vocab`` on) masked."""
+    logits = h_c.float() @ w.float()
+    V = logits.shape[-1]
+    if n_vocab and n_vocab < V:
+        logits = torch.where(torch.arange(V, device=h_c.device) < n_vocab,
+                             logits, -math.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          torch.clamp(l_c, min=0)[..., None])[..., 0]
+    return torch.where(l_c >= 0, lse - picked, 0.0)
 
 
 def _write_back(dst, src):
@@ -375,31 +481,51 @@ class DecoderLM:
 
     # -- forward ------------------------------------------------------------
     def hidden(self, params, tokens, patches=None,
-               collect_cache: bool = False, max_len: int = 0):
+               collect_cache: bool = False, max_len: int = 0,
+               train: bool = False):
         """tokens [B,S] (behind ``patches`` [B,P,d], the VLM's prefix) ->
-        (h [B,P+S,d] after the final norm, cache|None); positions run
-        over all P + S rows."""
+        (h [B,P+S,d] after the final norm, aux (the blocks' summed aux
+        loss), cache|None); positions run over all P + S rows.
+        ``train``: the training route (module docstring)."""
         cfg = self.cfg
         h = _embed_tokens(params, tokens, cfg)
         if patches is not None:
             h = torch.cat([patches.to(h.dtype), h], dim=1)
+        h = _add_positional(h, cfg)
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
-        h, cache = trunk(params, h, cfg, positions, collect_cache, max_len)
+        h, aux, cache = trunk(params, h, cfg, positions, collect_cache,
+                              max_len, train)
         h = apply_norm(params["final_norm"], h, cfg.norm)
-        return h, cache
+        return h, aux, cache
 
     def loss_fn(self, params, batch):
-        raise NotImplementedError("training (loss_fn, chunked_ce) is not "
-                                  "ported yet (ROADMAP A11.4)")
+        """batch: {tokens [B,S], labels [B,S] (-1: no loss), patches?
+        [B,P,d]} -> (loss, {"nll", "tokens", "aux"}).  The loss is the
+        mean NLL over the labelled tokens (none over the VLM's patch
+        positions), plus ``0.01 * aux / n_layers`` for a MoE model."""
+        cfg = self.cfg
+        h, aux, _ = self.hidden(params, batch["tokens"],
+                                batch.get("patches"), train=True)
+        labels = batch["labels"]
+        if "patches" in batch:   # no loss on modality positions
+            P = batch["patches"].shape[1]
+            labels = torch.cat([labels.new_full((labels.shape[0], P), -1),
+                                labels], dim=1)
+        tot, cnt = chunked_ce(h, self.head_w(params), labels,
+                              cfg.logit_chunk, cfg.vocab)
+        loss = tot / torch.clamp(cnt, min=1)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux / max(1, cfg.n_layers)
+        return loss, {"nll": tot, "tokens": cnt, "aux": aux}
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
     def prefill_fn(self, params, tokens, max_len: int, patches=None):
         """-> (last-position logits [B,V], cache); ``lens`` counts the
         patches too."""
-        h, cache = self.hidden(params, tokens, patches, collect_cache=True,
-                               max_len=max_len)
+        h, _, cache = self.hidden(params, tokens, patches,
+                                  collect_cache=True, max_len=max_len)
         logits = self._logits(params, h[:, -1, :])
         cache["lens"] = torch.full((tokens.shape[0],), h.shape[1],
                                    dtype=torch.int32, device=h.device)
@@ -408,11 +534,15 @@ class DecoderLM:
     @torch.no_grad()
     def decode_fn(self, params, tok: torch.Tensor, cache: dict):
         """tok [B] int -> (logits [B,V], cache'); updates ``cache`` in
-        place and returns it with ``lens`` advanced."""
+        place and returns it with ``lens`` advanced.  A sinusoidal row is
+        computed at the device tensor ``lens``: no host sync."""
         cfg = self.cfg
         group, n_groups, tail = _layer_groups(cfg)
         lens = cache["lens"]
         h = _embed_tokens(params, tok[:, None], cfg)
+        if cfg.pos == "sinusoidal":   # absolute position = lens
+            h = h + sinusoidal_rows(lens, h.shape[-1])[:, None, :].to(
+                h.dtype)
         for gi in range(n_groups):
             gp = _layer(params["blocks"], gi)
             gcache = _layer(cache["layers"], gi)

@@ -911,3 +911,104 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
         bound = 1e-4 * scale if dtype == "float32" else 3e-2 * max(1.0,
                                                                     scale)
         assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flash_attention", "ssd_intra"])
+def test_cuda_lm_kernels_refuse_a_gradient(cuda, route):
+    """The attention and SSD kernels have no backward: a CUDA input that
+    requires grad raises (naming the training route) and launches
+    nothing, where a silent launch would drop the gradient; the same
+    inputs under ``torch.no_grad()`` launch the kernel, and CPU inputs
+    that require grad run the plain version, which autograd
+    differentiates."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.ssd.ssd import ssd_intra
+    r = rng("refuse", route)
+    if route == "flash_attention":
+        args = [T(r.randn(1, 40, 4, 64).astype(np.float32)).to(torch.bfloat16)
+                for _ in range(3)]
+        fn = flash_attention
+    else:
+        b, nc, Q, nh, hp, N = 1, 2, 32, 2, 16, 16
+        args = [T(np.cumsum(-np.abs(r.randn(b, nc, Q, nh)), 2)
+                  .astype(np.float32)),
+                T(r.randn(b, nc, Q, nh, hp).astype(np.float32)),
+                T(r.randn(b, nc, Q, N).astype(np.float32)),
+                T(r.randn(b, nc, Q, N).astype(np.float32))]
+        fn = ssd_intra
+    dev = [a.to(cuda).requires_grad_() for a in args]
+    before = kernels.LAUNCHES[route]
+    with pytest.raises(RuntimeError, match="training route"):
+        fn(*dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == before
+    with torch.no_grad():
+        out = fn(*dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == before + 1
+    cpu = [a.requires_grad_() for a in args]
+    got = fn(*cpu)
+    loss = sum(x.float().sum() for x in (got if isinstance(got, tuple)
+                                        else (got,)))
+    loss.backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               for a in cpu)
+    assert kernels.LAUNCHES[route] == before + 1
+    del out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-7b", "starcoder2-15b",
+                                  "mistral-large-123b",
+                                  "moonshot-v1-16b-a3b", "dbrx-132b",
+                                  "mamba2-1.3b", "recurrentgemma-9b",
+                                  "whisper-tiny", "phi-3-vision-4.2b"])
+def test_cuda_grads_equal_cpu(cuda, arch):
+    """A smoke model's loss and every gradient leaf on the card against
+    the same weights and batch on the CPU, in float32 with TF32 off: B = 2
+    sequences of 64 positions (attention's chunked branch, two SSD
+    chunks, the hybrid past its 32-key window), loss to 1e-5, each leaf
+    to 1e-4 of its largest entry or of 1e-3 of the largest over all
+    leaves where that is more.  The training route launches no kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import loss_and_grads
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+    p_cpu = init_params(cpu.spec(), 0, device="cpu")
+    r = rng("cgrad", arch)
+    for blk in (*p_cpu.get("blocks", {}).values(), *p_cpu.get("tail", [])):
+        for name in ("ssm", "rglru"):
+            if name in blk:
+                for k in ("conv_w", "conv_b"):
+                    blk[name][k] = T((r.randn(*blk[name][k].shape) * 0.5)
+                                     .astype(np.float32))
+    St = 64 - (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = {k: T(r.randint(0, cfg.vocab, (2, St)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    batch["labels"][:, ::7] = -1
+    if cfg.family == "vlm":
+        batch["patches"] = T((r.randn(2, cfg.n_patches, cfg.d_model)
+                              * 0.02).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = T((r.randn(2, cfg.enc_seq, cfg.d_model)
+                             * 0.02).astype(np.float32))
+    kernels.reset_counts()
+    got = loss_and_grads(gpu, tree_map(lambda x: x.to(cuda), p_cpu),
+                         {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert not any(kernels.counts()["launches"].values())
+    want = loss_and_grads(cpu, p_cpu, batch)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * max(
+        1.0, abs(float(want[0])))
+    gl, wl = tree_leaves(got[2]), tree_leaves(want[2])
+    top = max(float(w.abs().max()) for w in wl)
+    for g, w in zip(gl, wl):
+        assert g.is_cuda and g.shape == w.shape
+        bound = 1e-4 * max(float(w.abs().max()), 1e-3 * top)
+        assert float((g.cpu() - w).abs().max()) <= bound

@@ -23,7 +23,8 @@ from repro.models import init_params as ref_init
 from repro.models import layers as RL
 from repro.models.params import LeafSpec as RefLeafSpec
 from repro_torch.configs import get_config
-from repro_torch.models import build_model, model_cache_spec, param_count
+from repro_torch.models import (build_model, init_params, model_cache_spec,
+                                param_count)
 from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_reference
@@ -170,9 +171,24 @@ def test_decoder_layer(S):
 
 
 def test_loss_fn_raises():
+    """``loss_fn`` is ported (held to the reference's in
+    ``tests/test_torch_train.py``) and raises where the reference's does:
+    on a text length that is not a multiple of ``logit_chunk`` (16 here;
+    ``chunked_ce`` asserts it), and on a batch without ``frames``."""
     cfg = get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError, match=r"A11\.4"):
-        build_model(cfg, device="cpu").loss_fn({}, {})
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.spec(), 0, device="cpu")
+    frames = torch.zeros(2, cfg.enc_seq, cfg.d_model)
+    toks = torch.zeros(2, 40, dtype=torch.int32)
+    with pytest.raises(AssertionError):
+        model.loss_fn(params, {"frames": frames, "tokens": toks,
+                               "labels": toks})
+    with pytest.raises(KeyError, match="frames"):
+        model.loss_fn(params, {"tokens": toks, "labels": toks})
+    loss, met = model.loss_fn(params, {"frames": frames,
+                                       "tokens": toks[:, :32],
+                                       "labels": toks[:, :32]})
+    assert torch.isfinite(loss) and int(met["tokens"]) == 64
 
 
 def test_params_from_reference_checks_encdec_leaves():

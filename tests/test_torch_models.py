@@ -404,10 +404,11 @@ def test_hybrid_apply_block(kind, S):
     cfg, rp, tp = hybrid_block(("block", S), kind)
     x = randn(rs("hybrid-x", kind, S), 2, S, cfg.d_model)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
-    h, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
-    h_ref, _, c_ref = RT.apply_block(rp, J(x), kind, cfg, J(pos),
-                                     RL.NO_HINTS, True, S + 4)
+    h, aux, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
+    h_ref, aux_ref, c_ref = RT.apply_block(rp, J(x), kind, cfg, J(pos),
+                                           RL.NO_HINTS, True, S + 4)
     close(h, h_ref)
+    close(aux, aux_ref)
     for g, w in zip(tree_leaves(c), jax.tree.leaves(c_ref)):
         close(g, w)
 
@@ -422,7 +423,7 @@ def test_hybrid_apply_block_decode(kind):
     S = 30
     x = randn(r, 2, S, cfg.d_model)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
-    _, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
+    _, _, c = TT.apply_block(tp, T(x), kind, cfg, T(pos), True, S + 4)
     _, _, c_ref = RT.apply_block(rp, J(x), kind, cfg, J(pos), RL.NO_HINTS,
                                  True, S + 4)
     for i in range(3):
@@ -618,6 +619,16 @@ def test_model_matches_reference(arch, dtype):
     config's 32-slot ring; behind the VLM's 8 patches; against
     whisper's 16 encoder frames, which take the full-attention branch)."""
     model_matches_reference(arch, dtype, 40, 3)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "phi-3-vision-4.2b"],
+                         ids=["dense", "vlm"])
+def test_model_matches_reference_sinusoidal(arch):
+    """``pos="sinusoidal"`` on a decoder-only config (no config of these
+    families has it, but ``ArchConfig`` takes it): the table after the
+    VLM's patches in ``hidden`` and the prefill, its row at ``lens`` in
+    each decode step, in float32 against the reference."""
+    model_matches_reference(arch, "float32", 40, 3, pos="sinusoidal")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
