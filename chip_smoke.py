@@ -153,8 +153,45 @@ Phases, each fatal on failure:
    route's hd-96 tiles, bf16 and fp16 (and a ragged non-causal case at
    its head layout in bf16 on that route, in float32 on the CUDA-core
    one), each beside SDPA;
-7. a ``{"kernels": [...]}`` line with every ported kernel's numbers
-   (``queued`` lists the kernels still to port: none); attention's row
+7. trainer phase (``trainer_phase``), after the kernel phase: the fact
+   engine's closure as training data, the trainer's checkpoints, crash and
+   resume, and the training launcher.  ``FactCorpusSource`` with its own
+   engine (``infer1`` on the ``torch`` backend) over ``synth_kg(--seed)``
+   at the default size (200 entities, 600 edges), then over a
+   ``corpus_engine`` at 400 entities and 1,200 edges (``CORPUS_SIZES``):
+   each build's decoded ``linksTo`` pairs equal the closed-form
+   transitive closure of the edge list (numpy boolean matrix products),
+   and at the default size ``facts_inferred`` equals the port's numpy
+   engine's, the triples equal numpy's as a multiset, and a second build
+   on the card gives the same triple order and the same batches at steps
+   0, 1 and 7; the builds must launch ``bitonic_sort``,
+   ``bitonic_sort_kv`` and ``probe_sorted``.  Then ``Trainer`` at full
+   width (``TRAINER_MODEL``: ``mamba2-1.3b``, d=2048, vocab 50,280, 8 of
+   its 48 layers, 2 × 2048 tokens; 310M parameters, 3.7 GB a checkpoint)
+   fed by the default-size corpus through ``ShardedLoader``, 16 steps:
+   (U) uninterrupted without checkpoints; (C) with ``save_async`` every 5
+   steps and a loader that raises once at step 12, which must raise with
+   step 10 committed; (R) a fresh ``Trainer`` on the same directory,
+   which must restore step 10 (every leaf bit-equal to the npz, on the
+   card, with its dtype), run steps 10-15 and save step 16.  The losses
+   of (C) and (R) must equal (U)'s at the same steps (exactly, unless a
+   second (U) run shows (U) does not repeat; then within that spread),
+   all finite, the last below the first; the free disk is checked before
+   the first save.  Then ``python -m repro_torch.launch.train --arch
+   yi-6b --smoke --data facts`` in a child (``runpy``, reporting its
+   kernel launches): 20 steps, whose final loss must fall, then 30 steps
+   on the same directory, which must restore step 20 and run 10.  The
+   phase's lines carry build and infer seconds, closure rows, launches by
+   kernel, the step time and tokens per second, ``save_async``'s blocking
+   time, write and restore seconds, bytes on disk and peak GB; the
+   checkpoint directories are deleted at the end.  Then the sorts, the
+   probe and the unique mask are bit-checked at both ends of every size
+   bucket this phase's runs launched them at (``path_shape_checks``),
+   and the merge ranks at its merge shapes, if any;
+8. a ``{"kernels": [...]}`` line with every ported kernel's numbers
+   (the fact kernels' launches counted over the engine, demand, serving,
+   launcher, sharded and trainer phases; ``queued`` lists the kernels
+   still to port: none); attention's row
    times the ``wgmma`` route beside the CUDA-core kernel on the same
    inputs (``simt_ms``) and counts yi's launches by route; its
    ``flash_attention@mha`` row (moonshot's shape) counts moonshot's; its
@@ -167,7 +204,7 @@ Phases, each fatal on failure:
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
    (``bound_old_ms``) beside the TF32 one;
-8. the last line: ``{"ok": true, "device": {...}}``.
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
 and cuDNN) wherever a kernel is compared with its plain version.
@@ -262,7 +299,7 @@ def is_sort_kernel(name: str) -> bool:
     return any(k in name for k in SORT_KERNELS)
 
 
-def sort_split(torch, fn, n: int, elem_bytes: int) -> dict:
+def sort_split(torch, fn, n: int, elem_bytes: int, expected: int) -> dict:
     """One sort call's device kernels, from ``torch.profiler`` (as
     ``lm_profile`` counts them), L2 flushed first, in three groups: the
     first tile launch, every cross-tile launch (``cross_fused`` and
@@ -271,9 +308,12 @@ def sort_split(torch, fn, n: int, elem_bytes: int) -> dict:
     array once); ``other`` is the wrapper's pad copy and fill.  The tracer
     can miss the first launches after it starts, even behind a spin kernel
     and a pause (seen after earlier profiles in one process), so three
-    calls run and the last is counted; a profile that shows no sort kernel
-    at all (seen once in a whole run) is taken again, up to three
-    profiles (``profiles``), and fails after that."""
+    calls run and the last is counted; a profile whose counted call shows
+    fewer sort kernels than the ``expected`` launches (none at all seen
+    once in a whole run; 8 of 15 over all three calls seen once behind a
+    million unprofiled launches) is taken again, up to three profiles
+    (``profiles``).
+    The caller gates the count of the last one taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,9 +341,9 @@ def sort_split(torch, fn, n: int, elem_bytes: int) -> dict:
                 last = i  # a wrapper's pad copy after a sort kernel: a call
         calls = calls[last:]
         sort = [(k, ms) for k, ms in calls if is_sort_kernel(k)]
-        if sort:
+        if len(sort) >= expected:
             break
-    else:
+    if not sort:
         fail("sort_split: the profiler saw no sort kernel in three profiles")
     other = [ms for k, ms in calls if not is_sort_kernel(k)]
     tile = SORT_KERNELS[0]
@@ -368,7 +408,8 @@ def sort_detail(torch, rng, reps: int, sizes=(13, 16, 18)) -> list:
                    "bound_ms": bound_ms(2 * eb * n, 0)[0],
                    "plan_launches": len(launch_plan(n, kv=kv))}
             if lg == lg_top:
-                row["split"] = sort_split(torch, call, n, eb)
+                row["split"] = sort_split(torch, call, n, eb,
+                                          row["plan_launches"])
             print(json.dumps(row), flush=True)
             if err:
                 fail(f"{name} at n={n}: kernel and plain version differ")
@@ -507,8 +548,9 @@ def rank_detail(torch, rng, reps: int, shapes) -> list:
 
 def path_shape_checks(torch, rng, sizes: dict) -> dict:
     """The sorts, the probe and the unique mask at every size the fact
-    path launched them at (``sizes``: the engine, demand, serving and
-    launcher runs), each call bit for bit against its plain version.  A
+    path launched them at (``sizes``: the engine, demand, serving,
+    launcher and sharded phases, or the trainer phase's runs), each call
+    bit for bit against its plain version.  A
     size is counted by bucket, 2^(k-1) < n <= 2^k, so both ends of each
     bucket are checked; the probe also in the padded form of a batched
     lookup (a real prefix of each side, ``INT64_MAX`` pads after it), and
@@ -1779,6 +1821,8 @@ def serving_phase(torch, facts, seed: int, sizes: dict,
 # runs the launcher module as ``python -m`` does (``runpy``), then prints
 # the kernel launches by size and the index-mirror merge shapes of that
 # process on a line of its own
+# (``{module}`` is the launcher's module; ``{setup}`` runs before it and
+# may add entries to ``report``)
 LAUNCHER_CHILD = """\
 import atexit, json, runpy, sys
 sys.path[:0] = [{root!r}, {src!r}]
@@ -1786,13 +1830,27 @@ import chip_smoke
 from repro_torch import kernels
 from repro_torch.backend import torch_ops
 shapes, _ = chip_smoke.merge_shapes(torch_ops)
+report = {{}}
+{setup}
 atexit.register(lambda: print("launcher_kernels " + json.dumps(
-    {{**kernels.counts(), "merge_shapes": sorted(set(shapes))}}),
+    {{**kernels.counts(), "merge_shapes": sorted(set(shapes)), **report}}),
     flush=True))
-sys.argv[0] = "repro_torch.launch.serve"
-runpy.run_module("repro_torch.launch.serve", run_name="__main__",
-                 alter_sys=True)
+sys.argv[0] = {module!r}
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
 """
+
+
+def launcher_env() -> dict:
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def launcher_child(module: str, setup: str = "") -> str:
+    return LAUNCHER_CHILD.format(root=str(ROOT), src=str(ROOT / "src"),
+                                 module=module, setup=setup)
 
 
 def launcher_phase(sizes: dict, shapes: list, backend: str = "torch",
@@ -1803,11 +1861,8 @@ def launcher_phase(sizes: dict, shapes: list, backend: str = "torch",
     ... qps`` line.  The module runs through ``runpy`` in a child that
     reports its kernel launches by size and its merge shapes, which are
     added to ``sizes`` and ``shapes``."""
-    import os
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    child = LAUNCHER_CHILD.format(root=str(ROOT), src=str(ROOT / "src"))
+    env = launcher_env()
+    child = launcher_child("repro_torch.launch.serve")
     for mode, shards in runs:
         t0 = time.perf_counter()
         res = subprocess.run(
@@ -2916,6 +2971,408 @@ def train_phase(torch, seed: int, models=TRAIN_MODELS,
                       time.perf_counter() - t_phase}), flush=True)
 
 
+# the trainer phase (module docstring, phase 7).  The fact corpus's KG
+# sizes (entities, edges): the default, whose batches feed the trainer,
+# then a larger one (the closure's work grows as n^3); the kernels its
+# builds must launch
+CORPUS_SIZES = ((200, 600), (400, 1200))
+CORPUS_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted")
+CORPUS_STEPS = (0, 1, 7)   # batches a second build must repeat
+# the trainer: (arch, layers, batch, seq), its optimizer and loop; the
+# crash run's loader raises once at CRASH_AT, after the async save of
+# step 10 began
+TRAINER_MODEL = ("mamba2-1.3b", 8, 2, 2048)
+TRAINER_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 16}
+TRAINER_LOOP = {"steps": 16, "ckpt_every": 5, "log_every": 1}
+CRASH_AT = 12
+CKPT_DIR = ROOT / "build" / "trainer_ckpt"
+# the launcher's two runs: (steps, the step it must restore, steps run)
+TRAIN_LAUNCHER_RUNS = ((20, None, 20), (30, 20, 10))
+# in the training launcher's child: the steps each Trainer.run ran
+TRAIN_LAUNCHER_SETUP = """\
+from repro_torch.train import trainer
+_run = trainer.Trainer.run
+def _counted(self, *a, **k):
+    out = _run(self, *a, **k)
+    report.setdefault("steps_run", []).append(len(out[1]))
+    return out
+trainer.Trainer.run = _counted
+"""
+
+
+def closed_form_closure(facts) -> set:
+    """The transitive closure of ``synth_kg``'s ``linksTo`` edges, by
+    boolean matrix products in numpy (no engine): {(subject, object)}."""
+    import numpy as np
+    edges = [(int(f.id[1:]), int(f.val[1:])) for f in facts
+             if f.attr == "linksTo"]
+    n = 1 + max(max(e) for e in edges)
+    reach = np.zeros((n, n), np.float32)
+    for s, o in edges:
+        reach[s, o] = 1
+    while True:   # each pass doubles the path lengths covered
+        more = np.maximum(reach, (reach @ reach > 0).astype(np.float32))
+        if np.array_equal(more, reach):
+            break
+        reach = more
+    return {(f"e{s}", f"e{o}") for s, o in zip(*np.nonzero(reach))}
+
+
+def corpus_build(torch, seed: int, kg: tuple, cfg, batch: int, seq: int,
+                 engine_backend: str | None):
+    """``FactCorpusSource`` over ``synth_kg(*kg, seed)``: with its own
+    engine (``engine_backend`` None: ``infer1`` on the card) or with one
+    built by ``corpus_engine`` on ``engine_backend``.  Returns the source,
+    its build seconds and the kernel launches of the build."""
+    from repro_torch import kernels
+    from repro_torch.data import factsource
+    kernels.reset_counts()  # the main path's run starts here
+    t0 = time.perf_counter()
+    if engine_backend is None:
+        src = factsource.FactCorpusSource(cfg.vocab, seq, batch, seed=seed)
+    else:
+        src = factsource.FactCorpusSource(
+            cfg.vocab, seq, batch, seed=seed,
+            engine=factsource.corpus_engine(seed, engine_backend, *kg))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return src, secs, kernels.counts()  # ... and ends here
+
+
+def corpus_phase(torch, seed: int, cfg, batch: int, seq: int, sizes: dict,
+                 shapes: list, kg_sizes=CORPUS_SIZES) -> tuple:
+    """The fact corpus on the card (phase 7, step 1).  Returns the
+    default-size source (its batches feed the trainer) and its builds'
+    launches by kernel; adds their launches by size to ``sizes`` and
+    their merge shapes to ``shapes``."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.backend import torch_ops
+    from repro_torch.core.conditions import cond
+    from repro_torch.data.factsource import synth_kg
+
+    launches = {name: 0 for name in kernels.ENGINE_KERNELS}
+    recorded, undo = merge_shapes(torch_ops)
+    query = [cond("Data", "?s", "linksTo", "?o")]
+    first = None
+    for i, kg in enumerate(kg_sizes):
+        src, secs, counts = corpus_build(torch, seed, kg, cfg, batch, seq,
+                                         "torch" if i else None)
+        add_sizes(sizes, counts)
+        launches = {k: launches[k] + counts["launches"][k]
+                    for k in launches}
+        closure = closed_form_closure(synth_kg(*kg, seed))
+        decoded = {(r["s"], r["o"]) for r in src.engine.query(query)}
+        line = {"phase": "corpus", "entities": kg[0], "edges": kg[1],
+                "own_engine": i == 0, "build_s": secs,
+                "infer_s": src.engine.last_infer.seconds,
+                "facts_inferred": src.engine.last_infer.facts_inferred,
+                "closure_rows": len(src._triples),
+                "closed_form_rows": len(closure),
+                "launches": {k: v for k, v in counts["launches"].items()
+                             if v},
+                "card": card_line()}
+        if i == 0:   # the default size: numpy's engine, a second build
+            ref, ref_s, _ = corpus_build(torch, seed, kg, cfg, batch, seq,
+                                         "numpy")
+            again, again_s, again_counts = corpus_build(
+                torch, seed, kg, cfg, batch, seq, None)
+            add_sizes(sizes, again_counts)
+            launches = {k: launches[k] + again_counts["launches"][k]
+                        for k in launches}
+            same_order = np.array_equal(again._triples, src._triples)
+            same_batches = all(
+                np.array_equal(again.batch(s)[k], src.batch(s)[k])
+                for s in CORPUS_STEPS for k in ("tokens", "labels"))
+            line.update({
+                "numpy_build_s": ref_s, "second_build_s": again_s,
+                "numpy_facts_inferred":
+                    ref.engine.last_infer.facts_inferred,
+                "multiset_equals_numpy": sorted(map(tuple,
+                                                    src._triples.tolist()))
+                == sorted(map(tuple, ref._triples.tolist())),
+                "order_equals_numpy": np.array_equal(src._triples,
+                                                     ref._triples),
+                "second_build_same_order": same_order,
+                "second_build_same_batches": same_batches})
+        print(json.dumps(line), flush=True)
+        if decoded != closure or len(src._triples) != len(closure):
+            fail(f"corpus {kg}: {len(decoded)} decoded linksTo pairs, "
+                 f"{len(src._triples)} rows, against {len(closure)} in the "
+                 "closed-form closure")
+        if i == 0:
+            if line["facts_inferred"] != line["numpy_facts_inferred"]:
+                fail(f"corpus {kg}: facts_inferred {line['facts_inferred']}"
+                     f", numpy {line['numpy_facts_inferred']}")
+            if not line["multiset_equals_numpy"]:
+                fail(f"corpus {kg}: triples differ from numpy's")
+            if not (same_order and same_batches):
+                fail(f"corpus {kg}: a second build gave another order "
+                     f"(same order {same_order}, batches {same_batches})")
+            first = src
+            del ref, again
+        else:
+            del src
+    undo()
+    shapes.extend(recorded)
+    require_launches("corpus", launches, CORPUS_KERNELS)
+    return first, launches
+
+
+def timed_method(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` so each call appends its seconds to ``log``."""
+    orig = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        log.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, timed)
+
+
+def checked_restore(torch, cm, log: list, device) -> None:
+    """Wrap ``cm.restore``: time it, then hold every restored leaf
+    against the checkpoint's npz bit for bit, on ``device``, with the
+    npz's dtype (before the first step writes the tensors in place)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.params import tree_leaves
+    orig = cm.restore
+
+    def restore(step, skeleton, shardings=None):
+        t0 = time.perf_counter()
+        tree = orig(step, skeleton, shardings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        host = CheckpointManager.snapshot(tree)
+        path = Path(cm.dir) / f"step_{step:09d}" / "shard_00000.npz"
+        bad = []
+        with np.load(path) as data:
+            if sorted(data.files) != sorted(host):
+                fail(f"restore {step}: keys differ from the npz's")
+            for (key, got), leaf in zip(host.items(), tree_leaves(tree)):
+                want = data[key]
+                if (leaf.device.type != torch.device(device).type
+                        or got.dtype != want.dtype
+                        or not np.array_equal(got, want)):
+                    bad.append(key)
+        log.append({"step": step, "seconds": secs, "leaves": len(host),
+                    "bad": bad})
+        return tree
+    cm.restore = restore
+
+
+def trainer_runs(torch, seed: int, loader, cfg, batch: int,
+                 device="cuda") -> dict:
+    """(U), (C) and (R) of phase 7, step 2, on ``loader``; every gate
+    fatal.  Returns the phase line's fields."""
+    import shutil
+
+    from repro_torch.models import param_count
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    def trainer(ckpt_dir, data):
+        return Trainer(cfg, data, OptimizerConfig(**TRAINER_OPT),
+                       TrainerConfig(**TRAINER_LOOP, ckpt_dir=ckpt_dir,
+                                     seed=seed),
+                       global_batch=batch, device=device)
+
+    def uninterrupted():
+        t = trainer(None, loader)
+        state, losses = t.run()
+        del state
+        return losses, t.timer.history
+
+    class CrashyLoader:
+        """Raises once at ``CRASH_AT``: a node failure."""
+
+        def __init__(self):
+            self.crashed = False
+
+        def __call__(self, step):
+            if step == CRASH_AT and not self.crashed:
+                self.crashed = True
+                raise RuntimeError("injected node failure")
+            return loader(step)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses_u, step_s = uninterrupted()
+    torch.cuda.empty_cache()
+    n = param_count(trainer(None, loader).model.spec())
+    ckpt_bytes = 12 * n + 4   # params, m and v in float32, the step
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    # keep=3 committed steps and one being written
+    need = 4 * ckpt_bytes
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < need:
+        fail(f"trainer: checkpoints need {need} bytes on disk, {free} free")
+
+    crash = trainer(str(CKPT_DIR), CrashyLoader())
+    snap_s, write_s = [], []
+    timed_method(crash.ckpt, "save_async", snap_s)
+    timed_method(crash.ckpt, "_write", write_s)
+    try:
+        crash.run()
+    except RuntimeError as e:
+        if "injected node failure" not in str(e):
+            raise
+    else:
+        fail("trainer: the crash run did not raise")
+    losses_c, latest_c = crash.losses, crash.ckpt.latest_step()
+    del crash
+    torch.cuda.empty_cache()
+
+    resume = trainer(str(CKPT_DIR), loader)
+    restores = []
+    checked_restore(torch, resume.ckpt, restores, device)
+    timed_method(resume.ckpt, "_write", write_s)
+    state, losses_r = resume.run()
+    del state
+    latest_r = resume.ckpt.latest_step()
+    on_disk = sum(f.stat().st_size for f in
+                  (CKPT_DIR / f"step_{latest_r:09d}").iterdir())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del resume
+    torch.cuda.empty_cache()
+
+    want_c, want_r = losses_u[:CRASH_AT], losses_u[10:]
+    dev = max([abs(a - b) for a, b in zip(losses_c, want_c)]
+              + [abs(a - b) for a, b in zip(losses_r, want_r)], default=0.0)
+    spread = None
+    if dev > 0:   # does (U) itself repeat?
+        again, _ = uninterrupted()
+        spread = max(abs(a - b) for a, b in zip(again, losses_u))
+    median_s = statistics.median(step_s)
+    out = {"losses_u": losses_u, "losses_c": losses_c, "losses_r": losses_r,
+           "max_dev_from_u": dev, "u_run_to_run_spread": spread,
+           "latest_after_crash": latest_c, "restores": restores,
+           "latest_after_resume": latest_r, "params": n,
+           "ckpt_bytes_on_disk": on_disk, "ckpt_state_bytes": ckpt_bytes,
+           "save_async_blocking_ms": [x * 1e3 for x in snap_s],
+           "write_s": write_s, "step_ms_median": median_s * 1e3,
+           "tokens_per_s": batch * loader.source.seq_len / median_s,
+           "peak_device_gb": peak_gb}
+    print(json.dumps({"phase": "trainer_runs", **out}), flush=True)
+    if latest_c != 10 or len(losses_c) != CRASH_AT:
+        fail(f"trainer: the crash left step {latest_c} committed after "
+             f"{len(losses_c)} steps, not step 10 after {CRASH_AT}")
+    if [r["step"] for r in restores] != [10] or restores[0]["bad"]:
+        fail(f"trainer: the resume restored {restores}")
+    if len(losses_r) != 6 or latest_r != 16:
+        fail(f"trainer: the resume ran {len(losses_r)} steps and left step "
+             f"{latest_r}, not 6 and 16")
+    if dev > 0 and not (spread and dev <= spread):
+        fail(f"trainer: crash/resume losses off the uninterrupted run's by "
+             f"{dev}, its own run-to-run spread {spread}")
+    every = losses_u + losses_c + losses_r
+    if not all(math.isfinite(x) for x in every):
+        fail("trainer: a loss is not finite")
+    if not losses_u[-1] < losses_u[0]:
+        fail(f"trainer: loss {losses_u[0]} -> {losses_u[-1]}")
+    if peak_gb >= 80:
+        fail(f"trainer: peak device memory {peak_gb} GB")
+    shutil.rmtree(CKPT_DIR)
+    return out
+
+
+def train_launcher_runs(sizes: dict, shapes: list, device="cuda") -> dict:
+    """``python -m repro_torch.launch.train --arch yi-6b --smoke --data
+    facts`` in a child, as ``TRAIN_LAUNCHER_RUNS`` says (phase 7, step
+    3).  Returns its launches by kernel; adds them by size to ``sizes``
+    and the merge shapes to ``shapes``."""
+    import shutil
+
+    from repro_torch import kernels
+    ckpt = CKPT_DIR.with_name("launcher_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = launcher_env()
+    child = launcher_child("repro_torch.launch.train", TRAIN_LAUNCHER_SETUP)
+    launches = {name: 0 for name in kernels.ENGINE_KERNELS}
+    for steps, restored, ran in TRAIN_LAUNCHER_RUNS:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", child, "--arch", "yi-6b", "--smoke",
+             "--steps", str(steps), "--data", "facts", "--ckpt-dir",
+             str(ckpt), "--device", device],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        lines = res.stdout.strip().splitlines()
+        final = [re.match(r"final loss: (\S+) \(start (\S+)\)", ln)
+                 for ln in lines]
+        final = [tuple(map(float, m.groups())) for m in final if m]
+        counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                  if ln.startswith("launcher_kernels ")]
+        said = re.findall(r"restoring checkpoint step (\d+)", res.stderr)
+        line = {"launcher": "repro_torch.launch.train", "steps": steps,
+                "rc": res.returncode, "seconds": time.perf_counter() - t0,
+                "final_loss": final[0] if final else None,
+                "restored": said, "kernels": counts[0] if counts else None}
+        print(json.dumps(line), flush=True)
+        if res.returncode != 0 or not final or not counts:
+            fail(f"train launcher ({steps} steps): rc {res.returncode}, "
+                 f"stderr {res.stderr[-400:]!r}")
+        last, start = final[0]
+        if not (math.isfinite(last) and math.isfinite(start)):
+            fail(f"train launcher ({steps} steps): loss {final[0]}")
+        if restored is None and not last < start:
+            fail(f"train launcher ({steps} steps): loss {start} -> {last}")
+        if said != ([] if restored is None else [str(restored)]) or \
+                counts[0].get("steps_run") != [ran]:
+            fail(f"train launcher ({steps} steps): restored {said}, ran "
+                 f"{counts[0].get('steps_run')}; want {restored}, {ran}")
+        add_sizes(sizes, counts[0])
+        shapes.extend(tuple(s) for s in counts[0]["merge_shapes"])
+        launches = {k: launches[k] + counts[0]["launches"][k]
+                    for k in launches}
+    shutil.rmtree(ckpt)
+    return launches
+
+
+def trainer_phase(torch, seed: int, reps: int, model=TRAINER_MODEL,
+                  kg_sizes=CORPUS_SIZES, device="cuda") -> dict:
+    """The fact corpus on the card, the trainer's crash and resume at
+    full width fed by it, and the training launcher (module docstring,
+    phase 7); every gate fatal.  The fact kernels are then bit-checked at
+    the sizes and merge shapes of this phase's runs, as the kernel phase
+    checks the earlier phases'.  Returns the fact kernels' launches over
+    the corpus builds and the launcher's children."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader
+
+    t0 = time.perf_counter()
+    sizes, shapes = new_sizes(), []
+    arch, layers, batch, seq = model
+    cfg = train_config(arch, layers)
+    src, launches = corpus_phase(torch, seed, cfg, batch, seq, sizes,
+                                 shapes, kg_sizes)
+    runs = trainer_runs(torch, seed, ShardedLoader(src), cfg, batch, device)
+    del src
+    child = train_launcher_runs(sizes, shapes, device)
+    launches = {k: launches[k] + child[k] for k in launches}
+    print(json.dumps({"trainer_path_sizes": sizes,
+                      "trainer_merge_shapes": sorted(set(shapes))}),
+          flush=True)
+    rng = np.random.RandomState(seed + 11)
+    path_shape_checks(torch, rng, sizes)
+    if shapes:
+        rank_detail(torch, rng, reps, sorted(set(shapes)))
+    print(json.dumps({"phase": "trainer", "arch": arch,
+                      "layers": [cfg.n_layers, get_config(arch).n_layers],
+                      "d_model": cfg.d_model, "vocab": cfg.vocab,
+                      "batch": batch, "seq": seq,
+                      "step_ms_median": runs["step_ms_median"],
+                      "tokens_per_s": runs["tokens_per_s"],
+                      "launches": launches,
+                      "seconds": time.perf_counter() - t0,
+                      "card": card_line()}), flush=True)
+    return launches
+
+
 KERNELS = [
     {"name": "bitonic_sort", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/bitonic_sort.cu",
@@ -3041,6 +3498,8 @@ def main() -> int:
     train_phase(torch, args.seed)
     rows = kernel_phase(torch, args.seed, args.reps, sorted(set(shapes)),
                         sizes)
+    corpus = trainer_phase(torch, args.seed, args.reps)
+    launches = {k: launches[k] + corpus.get(k, 0) for k in launches}
 
     line = []
     for k in KERNELS:

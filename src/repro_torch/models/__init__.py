@@ -5,11 +5,13 @@ decoders (``models/transformer.py``) and the enc-dec model
 
 from repro_torch.models.config import (ArchConfig, BlockKind, SHAPES,
                                        ShapeConfig, applicable_shapes)
-from repro_torch.models.model_api import build_model, model_cache_spec
-from repro_torch.models.params import init_params, param_bytes, param_count
+from repro_torch.models.model_api import (build_model, input_specs,
+                                          model_cache_spec)
+from repro_torch.models.params import (abstract_params, axes_tree,
+                                       init_params, param_bytes, param_count)
 
 __all__ = [
-    "ArchConfig", "BlockKind", "SHAPES", "ShapeConfig", "applicable_shapes",
-    "build_model", "init_params", "model_cache_spec", "param_bytes",
-    "param_count",
+    "ArchConfig", "BlockKind", "SHAPES", "ShapeConfig", "abstract_params",
+    "applicable_shapes", "axes_tree", "build_model", "init_params",
+    "input_specs", "model_cache_spec", "param_bytes", "param_count",
 ]

@@ -6,8 +6,9 @@ into a tree of the same layout holding tensors, so the reference's
 params carry across leaf by leaf (``models/convert.py``).
 
 The logical axes are kept for the LM's sharding slice (ROADMAP A11.5);
-the port reads none of them yet.  ``abstract_params`` and ``axes_tree`` are
-dry-run tools of the reference and are not ported.
+the port reads none of them yet (``axes_tree`` lists them).
+``abstract_params`` stands in for the reference's ``ShapeDtypeStruct``
+tree with tensors on the ``meta`` device, which allocate nothing.
 
 The store.  Every spec says float32, the reference's store, and
 ``init_params``/``params_from_reference`` keep it by default.  A leaf
@@ -91,6 +92,18 @@ def store_spec(spec_tree, store: str | None = None):
         raise ValueError(f"unknown store dtype {store!r}")
     return tree_map(lambda s: dataclasses.replace(s, dtype=store)
                     if s.cast else s, spec_tree, is_leaf=is_leaf_spec)
+
+
+def abstract_params(spec_tree):
+    """The spec tree as ``meta`` tensors of its shapes and dtypes: no
+    allocation."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                          device="meta"),
+                    spec_tree, is_leaf=is_leaf_spec)
+
+
+def axes_tree(spec_tree):
+    return tree_map(lambda s: s.axes, spec_tree, is_leaf=is_leaf_spec)
 
 
 def param_bytes(spec_tree) -> int:

@@ -1,14 +1,14 @@
-"""Training numerics of the port: AdamW and its schedule
-(``train/optimizer.py``) and the step builder with microbatch
-accumulation (``train/train_step.py``).  The trainer loop
-(``Trainer``/``TrainerConfig``), checkpoints and the data pipeline wait
-for ROADMAP A11.4b."""
+"""Training substrate of the port: AdamW and its schedule
+(``train/optimizer.py``), the step builder with microbatch accumulation
+(``train/train_step.py``) and the fault-tolerant trainer loop
+(``train/trainer.py``: checkpoints, heartbeats, crash and resume)."""
 
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          cosine_schedule, init_opt_state)
 from repro_torch.train.train_step import (build_train_step, init_train_state,
                                           loss_and_grads)
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
-__all__ = ["OptimizerConfig", "adamw_update", "build_train_step",
-           "cosine_schedule", "init_opt_state", "init_train_state",
-           "loss_and_grads"]
+__all__ = ["OptimizerConfig", "Trainer", "TrainerConfig", "adamw_update",
+           "build_train_step", "cosine_schedule", "init_opt_state",
+           "init_train_state", "loss_and_grads"]

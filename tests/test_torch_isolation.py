@@ -4,7 +4,9 @@
   no ``jax*`` module and nothing of ``repro``;
 * no port source and not ``chip_smoke.py`` even names such an import;
 * the ``torch`` backend, and the serving launcher that defaults to it,
-  raise when torch sees no CUDA device instead of moving to the CPU;
+  raise when torch sees no CUDA device instead of moving to the CPU, and
+  so do the trainer, the fact-corpus source's own engine and the
+  training launcher;
 * ``chip_smoke.py`` exits non-zero, printing no ``"ok": true`` line, on
   a machine without a card and in a directory holding nothing else of
   the repository.
@@ -117,6 +119,46 @@ def test_sharded_engine_refuses_to_run_without_cuda(monkeypatch):
     # asked for the device path without a device list, the exchange
     # permutes on the host and says so in every log entry
     assert not FrontierExchange(4).device
+
+
+def test_walk_reaches_the_training_infrastructure():
+    """The import check walks the trainer, checkpoints, runtime monitor,
+    data pipeline, fact-corpus source and training launcher too."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.train.trainer", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpoint", "repro_torch.runtime",
+            "repro_torch.runtime.monitor", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.data.factsource",
+            "repro_torch.launch.train"} <= names
+
+
+def test_training_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    """``Trainer`` (device ``cuda`` by default), ``FactCorpusSource``
+    with its own engine and the training launcher raise without a card;
+    none moves to the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.factsource import FactCorpusSource
+    from repro_torch.launch import train
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-6b", smoke=True)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(cfg, lambda step: None, OptimizerConfig(),
+                    TrainerConfig(), **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FactCorpusSource(vocab=256, seq_len=16, global_batch=4)
+    for argv in ([], ["--data", "facts"], ["--device", "cuda"]):
+        monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--steps",
+                                          "1", *argv])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main()
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
