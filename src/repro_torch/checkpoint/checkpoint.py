@@ -21,9 +21,14 @@ Layout (one directory per step), the reference's own::
   path (``['params']['embed']``, ``['opt']['m'][0]``; dict keys in
   sorted order), so a checkpoint written by either package restores in
   the other.
+* **Sharded leaves**: a ``ShardedTensor`` (``distributed/sharding.py``)
+  is saved whole, gathered to the host, as the reference's
+  ``np.asarray`` of a global array writes it.
 * **Restore**: each leaf goes onto the skeleton leaf's device with its
-  dtype and shape.  Restoring against a sharding waits for the LM's
-  sharding (ROADMAP A11.5).
+  dtype and shape; a ``ShardedTensor`` skeleton leaf back onto its own
+  layout.  ``shardings=`` (a tree of ``NamedSharding`` matching the
+  skeleton) lays each leaf out afresh — the elastic restore onto a new
+  mesh.
 """
 
 from __future__ import annotations
@@ -36,10 +41,15 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ShardedTensor, is_sharded
+
 
 def _keyed(tree, prefix: str = ""):
-    """(key, leaf) pairs in the reference's flatten order."""
-    if isinstance(tree, dict):
+    """(key, leaf) pairs in the reference's flatten order (a
+    ``ShardedTensor`` is one leaf)."""
+    if is_sharded(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _keyed(tree[k], f"{prefix}[{k!r}]")
     elif isinstance(tree, (list, tuple)):
@@ -49,20 +59,27 @@ def _keyed(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def _rebuild(fn, tree, prefix: str = ""):
-    """``tree``'s layout with each leaf replaced by ``fn(key, leaf)``."""
+def _rebuild(fn, tree, other=None, prefix: str = ""):
+    """``tree``'s layout with each leaf replaced by ``fn(key, leaf,
+    other's leaf)``; ``other`` is a tree of the same layout, or None."""
+    if is_sharded(tree):
+        return fn(prefix, tree, other)
     if isinstance(tree, dict):
-        return {k: _rebuild(fn, v, f"{prefix}[{k!r}]")
+        return {k: _rebuild(fn, v, None if other is None else other[k],
+                            f"{prefix}[{k!r}]")
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(fn, v, f"{prefix}[{i}]")
+        return type(tree)(_rebuild(fn, v, None if other is None
+                                   else other[i], f"{prefix}[{i}]")
                           for i, v in enumerate(tree))
-    return fn(prefix, tree)
+    return fn(prefix, tree, other)
 
 
 def _host(x) -> np.ndarray:
     """A numpy copy of ``x`` that shares no memory with it (a bfloat16
     tensor raises: numpy has no such type)."""
+    if isinstance(x, ShardedTensor):
+        return x.gather("cpu").detach().numpy()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x, copy=True)
@@ -152,15 +169,13 @@ class CheckpointManager:
     def restore(self, step: int, skeleton, shardings=None):
         """Restore into the skeleton's tree structure: each leaf a tensor
         on the skeleton leaf's device with its dtype (a leaf that is no
-        tensor gives a CPU tensor of the saved dtype)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring against shardings waits for the LM's sharding "
-                "(ROADMAP A11.5); restore(step, skeleton) puts each leaf on "
-                "the skeleton leaf's device")
+        tensor gives a CPU tensor of the saved dtype), a ``ShardedTensor``
+        skeleton leaf on its layout; ``shardings`` (a tree of
+        ``NamedSharding`` of the skeleton's layout) lays every leaf out
+        on its new mesh instead."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with np.load(os.path.join(path, "shard_00000.npz")) as data:
-            def leaf(key, like):
+            def leaf(key, like, sh):
                 x = torch.from_numpy(data[key])
                 want = tuple(like.shape if hasattr(like, "shape")
                              else np.shape(like))
@@ -168,7 +183,14 @@ class CheckpointManager:
                     raise ValueError(
                         f"checkpoint leaf {key} has shape {tuple(x.shape)}, "
                         f"the skeleton {want}")
+                if hasattr(like, "dtype") and isinstance(like.dtype,
+                                                         torch.dtype):
+                    x = x.to(like.dtype)
+                if sh is None and is_sharded(like):
+                    sh = like.sharding
+                if sh is not None:
+                    return sh.place(x)
                 if isinstance(like, torch.Tensor):
-                    return x.to(device=like.device, dtype=like.dtype)
+                    return x.to(device=like.device)
                 return x
-            return _rebuild(leaf, skeleton)
+            return _rebuild(leaf, skeleton, shardings)

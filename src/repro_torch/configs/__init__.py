@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full config; ``get_config(name,
 smoke=True)`` returns the reduced same-family variant the CPU tests use
 (small layers/width, few experts, tiny vocab).  Plain data, copied from
-the reference ``configs/`` with the same names; the port builds models
-for the ``dense`` and ``ssm`` families only (ROADMAP A11).
+the reference ``configs/`` with the same names; the port builds a model
+for every family (``models.build_model``).
 """
 
 from __future__ import annotations

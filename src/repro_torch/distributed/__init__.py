@@ -1,7 +1,13 @@
-"""Distribution layer of the port: the sharded engine's frontier
-exchange (``pipeline.FrontierExchange``), its lane codecs
-(``compression``) and its device list (``sharding.fact_devices``).
+"""Distribution layer of the port: sharding rules and layouts
+(``sharding``), collectives along a mesh axis (``spmd``), the int8
+gradient all-reduce and the frontier exchange's lane codecs
+(``compression``), GPipe stages and the sharded engine's frontier
+exchange (``pipeline``)."""
 
-The reference's GSPMD specs, GPipe stages and int8 gradient all-reduce
-belong to the LM's training and are not ported yet (ROADMAP A11).
-"""
+from repro_torch.distributed.sharding import (activation_hints,
+                                              batch_shardings,
+                                              shardings_for,
+                                              sharded_abstract, spec_for)
+
+__all__ = ["activation_hints", "batch_shardings", "shardings_for",
+           "sharded_abstract", "spec_for"]

@@ -1,4 +1,14 @@
-"""The sharded fact engine's frontier all-to-all.
+"""Inter-device pipelines: GPipe stages over a mesh axis and the sharded
+fact engine's frontier all-to-all.
+
+Pipeline parallelism (``pipeline_apply``): on a multi-pod mesh the slow
+inter-pod links carry only per-microbatch activations when pipeline
+*stages* map to pods, instead of per-layer FSDP all-gathers.  Stage
+``s`` holds the contiguous layers ``[s*L/S, (s+1)*L/S)`` on the ``s``-th
+device along the axis, and microbatches stream through on the 1F
+schedule (``n_micro + n_stages - 1`` ticks; the bubble is
+``(stages-1)/microbatches``), each tick's activations handed stage to
+stage by ``spmd.ppermute`` (the reference's ``collective_permute``).
 
 Frontier exchange (``FrontierExchange``): the transport of
 ``EngineConfig(shards=N)`` — each fixpoint round, every shard worker
@@ -15,11 +25,9 @@ loop.  When no device list is given and torch sees fewer CUDA devices
 than shards (or the engine runs the numpy backend) the same exchange
 runs as a host permute with identical semantics and byte accounting.
 
-The port's copy of ``FrontierExchange`` from the reference's
-``distributed/pipeline.py``; the reference's ``shard_map`` over a 1-D
-mesh becomes a list of ``torch.device`` (``sharding.fact_devices``).
-The GPipe ``pipeline_apply`` of that module belongs to the LM and is
-not ported yet (ROADMAP A11).
+The port's copy of the reference's ``distributed/pipeline.py``; its
+``shard_map`` over a mesh becomes a list of ``torch.device``
+(``launch/mesh.py``'s ``Mesh``, ``sharding.fact_devices``).
 """
 
 from __future__ import annotations
@@ -32,7 +40,65 @@ import torch
 
 from repro_torch.core.distributed import _exchange, bucket_scatter
 from repro_torch.distributed import compression as C
-from repro_torch.distributed.sharding import fact_devices
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import fact_devices, is_sharded, piece
+
+
+def pipeline_apply(block_fn, stacked_params, h: torch.Tensor, *, mesh,
+                   n_stages: int, n_micro: int, axis: str = "pod"):
+    """Run ``h`` through all layers with stage-held params.
+
+    ``block_fn(layer_params, h_micro) -> h_micro``; ``stacked_params``: a
+    tree whose leaves are ``[L_total, ...]`` (tensors or
+    ``ShardedTensor``s); ``h``: ``[B, ...]`` with ``B % n_micro == 0``.
+    Stage ``s`` runs on the ``s``-th device along ``axis`` (the other
+    axes at 0) with its own layers copied there.  Each tick, stage 0
+    takes microbatch ``t``, every stage runs its layers on what it holds
+    and ``ppermute`` hands the results on (``s -> s + 1``); the last
+    stage writes microbatch ``t - (S - 1)``.  A stage with no microbatch
+    in flight (the bubble) idles: the reference runs it on values no
+    output reads.  Returns the output on ``h``'s device.
+    """
+    from repro_torch.models.params import tree_leaves, tree_map
+    B = h.shape[0]
+    assert B % n_micro == 0
+    mb = B // n_micro
+    devs = mesh.axis_devices(axis)
+    if len(devs) != n_stages:
+        raise ValueError(f"{n_stages} stages over a {axis} axis of "
+                         f"{len(devs)}")
+    per = tree_leaves(stacked_params, is_sharded)[0].shape[0] // n_stages
+
+    def stage_params(s):
+        lo = s * per
+        return tree_map(lambda x: piece(x, devs[s], [(lo, lo + per)]),
+                        stacked_params, is_leaf=is_sharded)
+    stages = [stage_params(s) for s in range(n_stages)]
+
+    def run_stage(s, x):
+        for i in range(per):
+            x = block_fn(tree_map(lambda w: w[i], stages[s]), x)
+        return x
+
+    micro = h.reshape(n_micro, mb, *h.shape[1:])
+    out = [None] * n_micro
+    cur = [None] * n_stages
+    perm = [(i, (i + 1) % n_stages) for i in range(n_stages)]
+    for t in range(n_micro + n_stages - 1):
+        if t < n_micro:
+            cur[0] = micro[t].to(devs[0])
+        processed = []
+        for s in range(n_stages):
+            if 0 <= t - s < n_micro:
+                processed.append(run_stage(s, cur[s]))
+            else:
+                processed.append(torch.zeros((mb, *h.shape[1:]),
+                                             dtype=h.dtype, device=devs[s]))
+        done = t - (n_stages - 1)
+        if done >= 0:
+            out[done] = processed[-1].to(h.device)
+        cur = spmd.ppermute(processed, perm, devs)
+    return torch.cat(out, 0)
 
 
 def _pow2(n: int) -> int:

@@ -1,7 +1,7 @@
-"""LM substrate of the port: configs, layers, and every family's serving
-path: the dense, MoE, SSM, hybrid (RG-LRU + local attention) and VLM
-decoders (``models/transformer.py``) and the enc-dec model
-(``models/encdec.py``); ROADMAP A11 lists what waits."""
+"""LM substrate of the port: configs, layers, and every family's model:
+the dense, MoE, SSM, hybrid (RG-LRU + local attention) and VLM decoders
+(``models/transformer.py``) and the enc-dec model (``models/encdec.py``),
+each serving and training on one device or on a mesh (``Hints``)."""
 
 from repro_torch.models.config import (ArchConfig, BlockKind, SHAPES,
                                        ShapeConfig, applicable_shapes)

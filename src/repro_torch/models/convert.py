@@ -36,7 +36,7 @@ def params_from_reference(tree, cfg: ArchConfig, device="cuda",
     leaf's dtype differs from the spec of the family's model
     (``build_model(cfg).spec()``), whose dtypes are the reference's."""
     dev = check_device(device)
-    spec = build_model(cfg, dev).spec()
+    spec = build_model(cfg, device=dev).spec()
 
     def check_keys(s, t, path="params"):
         if isinstance(s, dict):

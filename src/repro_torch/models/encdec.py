@@ -23,6 +23,13 @@ decoder layer is rematerialized (``layers.remat``, the reference's
 ``jax.checkpoint`` of its scan bodies) and attention takes the
 reference's ``chunked_attention``, not the kernel.
 
+On a mesh (``build_model(cfg, hints)``): the reference's explicit code
+has no sharded form of this family's mixers, so each batch block runs
+the whole model on its replica's first device from the gathered
+weights (``_replicas``), with the same values; the loss reduces the NLL
+sums and label counts over the replicas, and the cache's leaves are
+``ShardedTensor``s split over the batch.
+
 In place: ``decode_fn`` writes each layer's new K/V row into the cache
 it is given and returns that cache with ``lens`` advanced.  No remat
 when serving: it keeps no activations for a backward pass.
@@ -32,8 +39,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              ShardedTensor, is_sharded,
+                                              whole)
 from repro_torch.models.config import ArchConfig, BlockKind
-from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
+from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
+                                       apply_norm, attention,
                                        attention_spec, decode_attention,
                                        dense, layernorm_spec, mlp_spec,
                                        remat, sinusoidal_rows,
@@ -42,8 +54,8 @@ from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_map)
 from repro_torch.models.transformer import (_attn_cache_from_prefill,
                                             _attn_part, _embed_tokens,
-                                            _layer, _unstack, attn_decode,
-                                            chunked_ce)
+                                            _layer, _rows, _unstack,
+                                            attn_decode, chunked_ce)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -135,11 +147,69 @@ class EncDecLM:
     """Encoder-decoder model (pure-function methods over a params tree).
 
     ``device`` (default ``"cuda"``) is where its params live; the model
-    raises at construction when that is CUDA and torch sees no card."""
+    raises at construction when that is CUDA and torch sees no card.
+    ``hints`` with a mesh run every entry point on the replicas
+    (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, hints: Hints = NO_HINTS,
+                 device="cuda"):
         self.cfg = cfg
+        self.hints = hints
+        if hints.sharded:
+            self.grid = hints.grid()
+            for d in set(hints.mesh.device_list()):
+                check_device(d)
+            device = self.grid[0, 0]
+            self._local = EncDecLM(cfg, device=device)
         self.device = check_device(device)
+
+    def _replicas(self, params, tree):
+        """(replica r's gathered params, its rows of ``tree``) for each
+        batch block ``r``, on ``grid[r, 0]``."""
+        R = self.grid.shape[0]
+        for r in range(R):
+            dev = self.grid[r, 0]
+            yield (tree_map(lambda x: whole(x, dev), params,
+                            is_leaf=is_sharded),
+                   tree_map(lambda x: _rows(x, dev, r, R), tree,
+                            is_leaf=is_sharded))
+
+    def _loss_replicas(self, params, batch):
+        tots, cnts = [], []
+        for pw, b in self._replicas(params, batch):
+            _, met = self._local.loss_fn(pw, b)
+            tots.append(met["nll"])
+            cnts.append(met["tokens"])
+        devs = [self.device] * len(tots)
+        tot, cnt = spmd.psum(tots, devs)[0], spmd.psum(cnts, devs)[0]
+        return tot / torch.clamp(cnt, min=1), {
+            "nll": tot, "tokens": cnt,
+            "aux": torch.zeros((), dtype=torch.float32, device=self.device)}
+
+    def _prefill_replicas(self, params, tokens, max_len, frames):
+        outs = [self._local.prefill_fn(pw, b["tokens"], max_len,
+                                       b["frames"])
+                for pw, b in self._replicas(params, {"tokens": tokens,
+                                                     "frames": frames})]
+        mesh, dp, R = self.hints.mesh, self.hints.dp(), len(outs)
+
+        def layout(*xs):   # stacked leaves [L, Br, ...]; lens [Br]
+            at = 0 if xs[0].ndim == 1 else 1
+            shape = list(xs[0].shape)
+            shape[at] *= R
+            spec = P(dp) if at == 0 else P(None, dp)
+            return ShardedTensor(NamedSharding(mesh, spec), shape, list(xs))
+        cache = tree_map(layout, *[c for _, c in outs])
+        return torch.cat([lg.to(self.device) for lg, _ in outs], 0), cache
+
+    def _decode_replicas(self, params, tok, cache):
+        logits = []
+        for r, (pw, t) in enumerate(self._replicas(params, tok)):
+            cr = tree_map(lambda x: x[r], cache, is_leaf=is_sharded)
+            lg, cr = self._local.decode_fn(pw, t, cr)
+            cache["lens"][r].copy_(cr["lens"])
+            logits.append(lg.to(self.device))
+        return torch.cat(logits, 0), cache
 
     def spec(self) -> dict:
         return encdec_spec(self.cfg)
@@ -204,6 +274,8 @@ class EncDecLM:
         """batch: {frames [B,Se,d], tokens [B,S], labels [B,S] (-1: no
         loss)} -> (loss, {"nll", "tokens", "aux"}): the mean NLL over the
         labelled tokens; ``aux`` is 0 (no experts)."""
+        if self.hints.sharded:
+            return self._loss_replicas(params, batch)
         enc_out = self.encode(params, batch["frames"], train=True)
         h, _ = self._decoder_hidden(params, batch["tokens"], enc_out,
                                     train=True)
@@ -220,6 +292,8 @@ class EncDecLM:
     def prefill_fn(self, params, tokens, max_len: int, frames):
         """Encode ``frames`` and run the decoder over ``tokens`` ->
         (last-position logits [B,V], cache)."""
+        if self.hints.sharded:
+            return self._prefill_replicas(params, tokens, max_len, frames)
         enc_out = self.encode(params, frames)
         h, layers = self._decoder_hidden(params, tokens, enc_out,
                                          collect_cache=True,
@@ -235,6 +309,8 @@ class EncDecLM:
         row at ``lens`` into ``cache`` in place and returns it with
         ``lens`` advanced.  The sinusoidal row is computed at the device
         tensor ``lens``: no host sync."""
+        if self.hints.sharded:
+            return self._decode_replicas(params, tok, cache)
         cfg = self.cfg
         lens = cache["lens"]
         h = _embed_tokens(params, tok[:, None], cfg)

@@ -20,22 +20,93 @@ implementations:
   route, and the kernel's wrapper raises when handed a tensor that
   requires grad.
 
-The reference's ``Hints`` (activation sharding constraints) have no
-counterpart yet: the LM's sharding is ROADMAP A11.5.
+``Hints`` carry what the reference's do: the named activations' specs,
+the mesh and the step kind.  There they constrain GSPMD's layout; here
+``apply`` leaves a value as it is, and the layers read ``specs`` and
+``mesh`` to pick their tensor-parallel forms, which run over the mesh's
+devices explicitly (``distributed/spmd.py`` collectives, weights read
+block by block from ``ShardedTensor``s or sliced from whole tensors):
+
+* ``attention_tp`` — head TP where ``activation_hints`` switches it on
+  (``attn_q`` split over ``model``): model index ``j`` projects and
+  attends its own heads from its blocks of ``wq/wk/wv`` (the KV heads
+  its query heads read), and the output projection is row-parallel,
+  then ``psum`` (``psum_rows``: in float32, rounded once);
+* ``mlp_tp`` — column-parallel ``gate/up`` (``in``), row-parallel
+  ``down`` (``out``), then ``psum``;
+* ``attention_decode_tp`` — one token against a KV cache split along
+  its sequence over ``model``: column-parallel flat projections
+  gathered, ``decode_attention_partial`` per cache block,
+  ``combine_decode_partials`` over the blocks (the LSE combine),
+  row-parallel output.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import compute_grid, piece, whole
 from repro_torch.kernels.flash_attention.ops import fused_attention
 from repro_torch.models.params import normal, ones, zeros
 
 F32 = torch.float32
+
+# ---------------------------------------------------------------------------
+# Sharding hints
+
+
+@dataclasses.dataclass(frozen=True)
+class Hints:
+    """Activation layout, keyed by logical activation name
+    (``distributed.sharding.activation_hints``), with the mesh it refers
+    to and the step family (``kind``: train/prefill/decode), which the
+    MoE layer reads to pick its expert-parallel form for the sequence
+    forms.  The layers read ``specs`` and ``mesh`` to pick their mesh
+    forms; the reference's ``apply`` (a layout constraint) has no
+    counterpart, as each form places its values itself."""
+
+    specs: dict = dataclasses.field(default_factory=dict)
+    mesh: object = None
+    kind: str = "train"
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the model runs its mesh forms (a mesh with devices)."""
+        return getattr(self.mesh, "devices", None) is not None
+
+    def dp(self) -> tuple[str, ...] | None:
+        """The mesh axes the batch splits over (the residual's dim 0)."""
+        entry = self.specs.get("residual", (None,))[0]
+        if entry is None:
+            return None
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def head_tp(self) -> bool:
+        spec = self.specs.get("attn_q", ())
+        return len(spec) > 2 and spec[2] == "model"
+
+    def seq_parallel(self) -> bool:
+        spec = self.specs.get("residual", ())
+        return len(spec) > 1 and spec[1] == "model"
+
+    def grid(self):
+        """``[R, M]`` devices: batch block ``r``, model index ``j``
+        (``distributed.sharding.compute_grid``)."""
+        return compute_grid(self.mesh, self.dp())
+
+
+NO_HINTS = Hints()
+
+
+def split_range(n: int, parts: int, j: int) -> tuple[int, int]:
+    """Part ``j`` of ``parts`` contiguous ranges over ``n``."""
+    return n * j // parts, n * (j + 1) // parts
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -341,10 +412,23 @@ def decode_attention_partial(q, k_cache, v_cache, valid_mask):
     return o.reshape(B, Hq, hd), m.reshape(B, Hq), l.reshape(B, Hq)
 
 
-def combine_decode_partials(o, m, l):
-    """Normalize one partial (the single-device form: no cross-shard
-    combine until the LM's sharding lands, ROADMAP A11.5)."""
-    return o / torch.clamp(l, min=1e-30)[..., None]
+def combine_decode_partials(o, m, l, axis=None):
+    """LSE-combine partials.  ``axis=None``: ``o, m, l`` are one partial,
+    normalized.  Otherwise ``axis`` lists the devices of the mesh axis
+    the cache's sequence is split over and ``o, m, l`` are lists of
+    their partials: ``pmax`` of ``m``, each partial scaled by
+    ``exp(m - m_g)`` (0 where its block saw no valid key, ``m = -inf``),
+    ``psum`` of ``l`` and ``o``; returns the normalized output on every
+    device."""
+    if axis is None:
+        return o / torch.clamp(l, min=1e-30)[..., None]
+    m_g = spmd.pmax(m, axis)
+    scale = [torch.where(torch.isfinite(mi), torch.exp(mi - mg), 0.0)
+             for mi, mg in zip(m, m_g)]
+    l_g = spmd.psum([li * si for li, si in zip(l, scale)], axis)
+    o_g = spmd.psum([oi * si[..., None] for oi, si in zip(o, scale)], axis)
+    return [og / torch.clamp(lg, min=1e-30)[..., None]
+            for og, lg in zip(o_g, l_g)]
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, dtype):
@@ -378,3 +462,176 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         return dense(p["down"], h)
     h = F.gelu(dense(p["in"], x), approximate="tanh")
     return dense(p["out"], h)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel forms (module docstring).  ``xs[j]`` is model index
+# ``j``'s input, whole, on ``devs[j]``; weights are tensors or
+# ``ShardedTensor``s, read a piece at a time on the device that uses it.
+
+
+def dense_cols(p: dict, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``dense(p, x)[..., lo:hi]``, from columns ``lo:hi`` of ``w`` (and
+    ``b``) alone (column-parallel)."""
+    w = p["w"]
+    y = x @ piece(w, x.device, [(0, w.shape[0]), (lo, hi)]).to(x.dtype)
+    if "b" in p:
+        y = y + piece(p["b"], x.device, [(lo, hi)]).to(y.dtype)
+    return y
+
+
+def dense_rows(p: dict, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``x @ w[lo:hi]`` without the bias: one row-parallel partial (the
+    caller ``psum``s and adds the bias once, ``add_bias``)."""
+    return x @ piece(p["w"], x.device, [(lo, hi)]).to(x.dtype)
+
+
+def add_bias(p: dict, ys: list) -> list:
+    if "b" not in p:
+        return ys
+    return [y + whole(p["b"], y.device).to(y.dtype) for y in ys]
+
+
+def psum_rows(partials: list, devs: list) -> list:
+    """``psum`` of row-parallel partials, accumulated in float32 and
+    rounded to their dtype once (a 16-bit partial is rounded once by its
+    product already; summing in 16 bits would round again at each
+    add)."""
+    dt = partials[0].dtype
+    return [x.to(dt) for x in spmd.psum([x.float() for x in partials],
+                                        devs)]
+
+
+def kv_heads_of(cfg, lo: int, hi: int) -> tuple[int, int] | None:
+    """The KV heads query heads ``lo:hi`` read, as a range, when the
+    range's grouping is the whole layout's (each of its query heads
+    ``h`` reads KV head ``h // G`` and local head ``h - lo`` reads local
+    KV head ``(h - lo) // G_loc``); ``None`` where it is not."""
+    Hq, Hkv = cfg.q_heads(), cfg.n_kv_heads
+    G, n = Hq // Hkv, hi - lo
+    if Hq % Hkv or not (G % n == 0 or n % G == 0):
+        return None
+    return lo // G, (hi - 1) // G + 1
+
+
+def project_qkv_heads(p: dict, x: torch.Tensor, cfg, positions, lo: int,
+                      hi: int):
+    """Query heads ``lo:hi`` of ``project_qkv`` and the KV heads they
+    read -> (q [B,S,hi-lo,hd], k, v [B,S,n_kv_loc,hd], (klo, khi)): the
+    KV heads' range (the whole, repeated per query head, where the
+    grouping does not split, ``kv_heads_of``)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = dense_cols(p["q"], x, lo * hd, hi * hd).reshape(B, S, hi - lo, hd)
+    kr = kv_heads_of(cfg, lo, hi)
+    klo, khi = kr if kr is not None else (0, cfg.n_kv_heads)
+    k = dense_cols(p["k"], x, klo * hd, khi * hd).reshape(B, S, -1, hd)
+    v = dense_cols(p["v"], x, klo * hd, khi * hd).reshape(B, S, -1, hd)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v, (klo, khi)
+
+
+def attention_tp(p: dict, xs: list, cfg, positions: list, devs: list, *,
+                 causal: bool = True, window: int = 0, train: bool = False):
+    """Head-TP self-attention (sequence form) over one model row
+    ``devs`` -> (the attention block's output on every device, each
+    device's (k, v, (klo, khi)) for the cache).  Model index ``j`` runs
+    query heads ``split_range(Hq, M, j)`` through ``attention`` (the
+    hand-written kernel when serving on the card), then its rows of the
+    output projection; the partials are ``psum``med and the bias added
+    once."""
+    M = len(devs)
+    hd = cfg.head_dim
+    partials, kvs = [], []
+    for j, x in enumerate(xs):
+        lo, hi = split_range(cfg.q_heads(), M, j)
+        q, k, v, kr = project_qkv_heads(p, x, cfg, positions[j], lo, hi)
+        if kv_heads_of(cfg, lo, hi) is None:
+            # the grouping splits: each local query head gets its KV head
+            G = cfg.q_heads() // cfg.n_kv_heads
+            ka = torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi]
+            va = torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi]
+        else:
+            ka, va = k, v
+        a = attention(q, ka, va, cfg, causal=causal, window=window,
+                      train=train)
+        B, S = a.shape[:2]
+        partials.append(dense_rows(p["o"], a.reshape(B, S, -1), lo * hd,
+                                   hi * hd))
+        kvs.append((k, v, kr))
+    return add_bias(p["o"], psum_rows(partials, devs)), kvs
+
+
+def attention_decode_tp(p: dict, xs: list, cfg, lens: list, devs: list,
+                        kcs: list, vcs: list):
+    """One token's self-attention over a cache whose sequence is split
+    over the model row ``devs``: ``kcs[j]``/``vcs[j]`` [B, L/M, Hkv, hd]
+    hold positions ``j*L/M ..`` on ``devs[j]``; ``lens[j]`` [B] (tokens
+    already cached) on ``devs[j]``.  The flat q/k/v projections are
+    column-parallel and gathered; the new K/V row is written (in place)
+    into the block that holds position ``lens``; each block's partial
+    (``decode_attention_partial``) is LSE-combined over the row; the
+    output projection is row-parallel, then ``psum``.  -> the block's
+    output [B, 1, d] on every device."""
+    M = len(devs)
+    hd, Hq, Hkv = cfg.head_dim, cfg.q_heads(), cfg.n_kv_heads
+    B = xs[0].shape[0]
+
+    def flat(name, n):
+        return spmd.all_gather([dense_cols(p[name], x, *split_range(
+            n, M, j)) for j, x in enumerate(xs)], -1, devs)
+    qs, ks, vs = flat("q", Hq * hd), flat("k", Hkv * hd), flat("v", Hkv * hd)
+    os_, ms, ls = [], [], []
+    for j, dev in enumerate(devs):
+        pos = lens[j][:, None]
+        q = qs[j].reshape(B, 1, Hq, hd)
+        k = ks[j].reshape(B, 1, Hkv, hd)
+        v = vs[j].reshape(B, 1, Hkv, hd)
+        if cfg.pos == "rope":
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+        kc, vc = kcs[j], vcs[j]
+        Lb = kc.shape[1]
+        at = lens[j].long() - j * Lb
+        own = (at >= 0) & (at < Lb)
+        rows = torch.arange(B, device=dev)
+        slot = torch.clamp(at, 0, Lb - 1)
+        kc[rows, slot] = torch.where(own[:, None, None], k[:, 0].to(
+            kc.dtype), kc[rows, slot])
+        vc[rows, slot] = torch.where(own[:, None, None], v[:, 0].to(
+            vc.dtype), vc[rows, slot])
+        valid = (torch.arange(Lb, device=dev)[None, :] + j * Lb
+                 <= lens[j].long()[:, None])
+        o, m, l = decode_attention_partial(q[:, 0], kc, vc, valid)
+        os_.append(o), ms.append(m), ls.append(l)
+    a = combine_decode_partials(os_, ms, ls, axis=devs)
+    partials = []
+    for j, aj in enumerate(a):
+        lo, hi = split_range(Hq, M, j)
+        aj = aj.to(xs[j].dtype)[:, lo:hi].reshape(B, 1, -1)
+        partials.append(dense_rows(p["o"], aj, lo * hd, hi * hd))
+    return add_bias(p["o"], psum_rows(partials, devs))
+
+
+def mlp_tp(p: dict, xs: list, cfg, devs: list) -> list:
+    """The MLP over a model row: column-parallel ``gate``/``up`` (``in``)
+    on ``split_range(d_ff, M, j)``, row-parallel ``down`` (``out``), then
+    ``psum`` and the output bias once."""
+    M = len(devs)
+    out = []
+    if cfg.mlp == "swiglu":
+        ff = p["gate"]["w"].shape[1]
+        for j, x in enumerate(xs):
+            lo, hi = split_range(ff, M, j)
+            h = F.silu(dense_cols(p["gate"], x, lo, hi)) * dense_cols(
+                p["up"], x, lo, hi)
+            out.append(dense_rows(p["down"], h, lo, hi))
+        return add_bias(p["down"], psum_rows(out, devs))
+    ff = p["in"]["w"].shape[1]
+    for j, x in enumerate(xs):
+        lo, hi = split_range(ff, M, j)
+        h = F.gelu(dense_cols(p["in"], x, lo, hi), approximate="tanh")
+        out.append(dense_rows(p["out"], h, lo, hi))
+    return add_bias(p["out"], psum_rows(out, devs))

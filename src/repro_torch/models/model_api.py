@@ -1,6 +1,6 @@
 """Unified model API (port of the reference ``models/model_api.py``).
 
-``build_model(cfg)`` returns an object exposing ``spec() / prefill_fn /
+``build_model(cfg, hints)`` returns an object exposing ``spec() / prefill_fn /
 decode_fn``: ``EncDecLM`` (``models/encdec.py``) for the ``encdec``
 family, whose prefill takes ``frames``, and ``DecoderLM`` for the
 ``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm`` families (the VLM's
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.encdec import EncDecLM, encdec_cache_spec
+from repro_torch.models.layers import NO_HINTS, Hints
 from repro_torch.models.params import DTYPES, abstract_params
 from repro_torch.models.transformer import DecoderLM, cache_spec
 
@@ -30,11 +31,15 @@ def _check_family(cfg: ArchConfig) -> None:
             f"builds {', '.join(FAMILIES)}")
 
 
-def build_model(cfg: ArchConfig, device="cuda") -> DecoderLM | EncDecLM:
+def build_model(cfg: ArchConfig, hints: Hints = NO_HINTS,
+                device="cuda") -> DecoderLM | EncDecLM:
+    """The config's model; ``hints`` (``activation_hints`` over a mesh)
+    make it run its mesh forms, as the reference's ``build_model(cfg,
+    hints)``."""
     _check_family(cfg)
     if cfg.family == "encdec":
-        return EncDecLM(cfg, device)
-    return DecoderLM(cfg, device)
+        return EncDecLM(cfg, hints, device)
+    return DecoderLM(cfg, hints, device)
 
 
 def model_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:

@@ -11,9 +11,20 @@ its combine weight contributes 0, as in the reference.
 
 The reference runs this dispatch in XLA (argsort, searchsorted, a
 scatter, einsums) and has no Pallas kernel for it, so here it is stock
-torch ops.  Its expert-parallel path (``_moe_shard_map``: experts split
-over a mesh's model axis, two all-to-alls) waits for the LM's sharding
-(ROADMAP A11.5).
+torch ops.
+
+Expert parallelism (``moe_ep``, the reference's ``_moe_shard_map``):
+on a mesh whose ``model`` axis splits the experts (``uses_ep``: kind
+train or prefill, ``model`` > 1, ``E % model == 0``), each device routes
+its own tokens (its sequence block where the residual is
+sequence-parallel), packs the pairs by destination shard with a
+per-device capacity ``Cs`` (``_route_and_pack``), ``all_to_all``s them
+along ``model``, runs its ``E / model`` experts' FFN from its experts'
+blocks with a second local dispatch (``_local_expert_ffn``, capacity
+``C2``), ``all_to_all``s the results back and combines.  The aux loss
+is over the global token population (``psum`` of the routing sums).
+Capacity is per device batch, so where it binds the two forms drop
+different pairs.
 
 Dropped pairs are counted on the device, with no host sync inside
 ``apply_moe``; ``dropped_pairs()`` reads the count (one host read) and
@@ -92,17 +103,33 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.topk(probs, k, dim=-1)
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg, expert_shards: int = 1
+def uses_ep(cfg, hints) -> bool:
+    """Where the reference's ``apply_moe`` takes its expert-parallel
+    form: a mesh with a ``model`` axis > 1 that divides the experts, in
+    a sequence form (train/prefill)."""
+    mesh = hints.mesh
+    return (getattr(mesh, "devices", None) is not None
+            and "model" in mesh.axis_names
+            and hints.kind in ("train", "prefill")
+            and mesh.shape["model"] > 1
+            and cfg.n_experts % mesh.shape["model"] == 0)
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg, hints=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] -> (y [B,S,d] in x's dtype, the Switch load-balancing
-    aux loss, a float32 scalar).
+    aux loss, a float32 scalar): the expert-parallel form where
+    ``uses_ep(cfg, hints)`` (``_moe_shard_map``), else the global one
+    (``_moe_gspmd``)."""
+    if hints is not None and uses_ep(cfg, hints):
+        return _moe_shard_map(p, x, cfg, hints)
+    return _moe_gspmd(p, x, cfg)
 
-    ``expert_shards`` > 1 asks for the reference's expert-parallel
-    dispatch over that many shards of the model axis, which raises."""
-    if expert_shards > 1:
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch (the reference's _moe_shard_map) "
-            "waits for the LM's sharding (ROADMAP A11.5)")
+
+def _moe_gspmd(p: dict, x: torch.Tensor, cfg
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global-shape dispatch over all of ``x``'s tokens (module
+    docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -150,3 +177,144 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, expert_shards: int = 1
     y_pairs[order] = y_sorted                        # the inverse permutation
     y = torch.einsum("tkd,tk->td", y_pairs.view(T, k, d), top_w.to(dt))
     return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch over a mesh (module docstring)
+
+
+def _ceil8(c: int) -> int:
+    return max(8, -(-c // 8) * 8)
+
+
+def _route_and_pack(xf, top_e, E_loc: int, ms: int, Cs: int):
+    """Sort the pairs by (destination shard, expert) and pack them into
+    ``[ms * Cs]`` send slots -> (send_x, send_e (local expert id;
+    ``E_loc`` marks an empty slot), order, kept, slot): the inverse
+    mapping unpacks what comes back."""
+    T, k = top_e.shape
+    dev = xf.device
+    e_flat = top_e.reshape(T * k)
+    order = torch.argsort(e_flat, stable=True)  # by expert => by dest
+    e_s = e_flat[order]
+    dest_s = e_s // E_loc
+    starts = torch.searchsorted(dest_s, torch.arange(ms, device=dev))
+    pos = torch.arange(T * k, device=dev) - starts[dest_s]
+    kept = pos < Cs
+    slot = torch.where(kept, dest_s * Cs + pos, ms * Cs)
+    # row ms*Cs takes every dropped pair and is cut off
+    send_x = xf.new_zeros((ms * Cs + 1, xf.shape[1]))
+    send_x[slot] = xf[order // k]
+    send_e = torch.full((ms * Cs + 1,), E_loc, dtype=torch.long, device=dev)
+    send_e[slot] = e_s % E_loc
+    _count_dropped((~kept).sum())
+    return send_x[:ms * Cs], send_e[:ms * Cs], order, kept, slot
+
+
+def _local_expert_ffn(rx, re, gw, uw, dw, E_loc: int, C2: int):
+    """The second (local) dispatch by expert id, capacity ``C2``, and the
+    experts' SwiGLU -> each received row's output (0 for an empty or
+    dropped slot)."""
+    Trecv, d = rx.shape
+    dev = rx.device
+    order2 = torch.argsort(re, stable=True)  # empty slots (E_loc) last
+    re_s = re[order2]
+    starts2 = torch.searchsorted(re_s, torch.arange(E_loc, device=dev))
+    pos2 = (torch.arange(Trecv, device=dev)
+            - starts2[torch.clamp(re_s, 0, E_loc - 1)])
+    kept2 = (re_s < E_loc) & (pos2 < C2)
+    _count_dropped(((re_s < E_loc) & ~kept2).sum())
+    slot2 = torch.where(kept2, re_s * C2 + pos2, E_loc * C2)
+    buf = rx.new_zeros((E_loc * C2 + 1, d))
+    buf[slot2] = rx[order2]
+    buf = buf[:E_loc * C2].view(E_loc, C2, d)
+    h = F.silu(torch.bmm(buf, gw)) * torch.bmm(buf, uw)
+    y_buf = torch.bmm(h, dw).reshape(E_loc * C2, d)
+    y2 = torch.where(kept2[:, None],
+                     y_buf[torch.clamp(slot2, max=E_loc * C2 - 1)], 0.0)
+    y_recv = torch.empty_like(rx)
+    y_recv[order2] = y2.to(rx.dtype)
+    return y_recv
+
+
+def moe_ep(p: dict, X: list, cfg, hints, grid):
+    """The expert-parallel MoE over the grid: ``X[r][j]`` is batch block
+    ``r``'s input [Br, S, d], whole, on ``grid[r, j]``.  -> (the outputs
+    in the same layout, the aux loss on ``grid[0, 0]``)."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import piece, whole
+    R, M = grid.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // M
+    sp = hints.seq_parallel()
+    Br, S, d = X[0][0].shape
+    dt = X[0][0].dtype
+    cells = []       # per (r, j): its local routing
+    for r in range(R):
+        for j in range(M):
+            x, dev = X[r][j], grid[r, j]
+            if sp:
+                x = x[:, S * j // M:S * (j + 1) // M]
+            xf = x.reshape(-1, d)
+            probs = _route(xf, whole(p["router"]["w"], dev))
+            top_w, top_e = _top_k(probs, k)
+            top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True),
+                                        min=1e-9)
+            cells.append({"x": x, "xf": xf, "probs": probs, "top_w": top_w,
+                          "top_e": top_e})
+    # aux load-balance loss over the GLOBAL token population
+    every = [grid[r, j] for r in range(R) for j in range(M)]
+    dev0 = grid[0, 0]
+    me = spmd.psum([c["probs"].sum(0) for c in cells], every)[0].to(dev0)
+    ce = spmd.psum([F.one_hot(c["top_e"][:, 0], E).float().sum(0)
+                    for c in cells], every)[0].to(dev0)
+    n_tok = float(sum(c["xf"].shape[0] for c in cells))
+    aux = E * torch.sum((me / n_tok) * (ce / n_tok))
+
+    T = cells[0]["xf"].shape[0]
+    Cs = _ceil8(int(T * k / M * cfg.capacity_factor))
+    C2 = _ceil8(int(M * Cs * cfg.capacity_factor / E_loc))
+    for c in cells:
+        (c["send_x"], c["send_e"], c["order"], c["kept"],
+         c["slot"]) = _route_and_pack(c["xf"], c["top_e"], E_loc, M, Cs)
+    out = []
+    for r in range(R):
+        devs = list(grid[r])
+        row = cells[r * M:(r + 1) * M]
+        rx = spmd.all_to_all([c["send_x"] for c in row], 0, 0, devs)
+        re = spmd.all_to_all([c["send_e"] for c in row], 0, 0, devs)
+        y_recv = []
+        for j, dev in enumerate(devs):
+            ex = [(j * E_loc, (j + 1) * E_loc)]
+            y_recv.append(_local_expert_ffn(
+                rx[j], re[j], piece(p["gate"], dev, ex).to(dt),
+                piece(p["up"], dev, ex).to(dt),
+                piece(p["down"], dev, ex).to(dt), E_loc, C2))
+        yb = spmd.all_to_all(y_recv, 0, 0, devs)
+        ys = []
+        for c, y in zip(row, yb):
+            y_sorted = torch.where(c["kept"][:, None],
+                                   y[torch.clamp(c["slot"], max=M * Cs - 1)],
+                                   0.0)
+            y_pairs = torch.empty_like(y_sorted)
+            y_pairs[c["order"]] = y_sorted
+            yl = torch.einsum("tkd,tk->td", y_pairs.view(-1, k, d),
+                              c["top_w"].to(dt))
+            ys.append(yl.reshape(c["x"].shape))
+        if sp:
+            ys = spmd.all_gather(ys, 1, devs)
+        out.append(ys)
+    return out, aux
+
+
+def _moe_shard_map(p: dict, x: torch.Tensor, cfg, hints):
+    """``apply_moe``'s expert-parallel form on a whole ``x`` [B,S,d]:
+    its batch blocks copied to the grid, ``moe_ep``, the outputs
+    gathered back to ``x``'s device."""
+    grid = hints.grid()
+    R, M = grid.shape
+    xr = x.chunk(R, 0)
+    ys, aux = moe_ep(p, [[xr[r].to(d) for d in grid[r]] for r in range(R)],
+                     cfg, hints, grid)
+    return (torch.cat([ys[r][0].to(x.device) for r in range(R)], 0),
+            aux.to(x.device))

@@ -5,8 +5,8 @@ tree (nested dicts and lists) of ``LeafSpec``; ``init_params`` turns it
 into a tree of the same layout holding tensors, so the reference's
 params carry across leaf by leaf (``models/convert.py``).
 
-The logical axes are kept for the LM's sharding slice (ROADMAP A11.5);
-the port reads none of them yet (``axes_tree`` lists them).
+The logical axes give each leaf's layout on a mesh
+(``distributed/sharding.py``'s ``spec_for``; ``axes_tree`` lists them).
 ``abstract_params`` stands in for the reference's ``ShapeDtypeStruct``
 tree with tensors on the ``meta`` device, which allocate nothing.
 
@@ -64,9 +64,10 @@ def tree_map(fn: Callable, tree, *rest, is_leaf=None):
         return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
-                                   is_leaf=is_leaf)
-                          for i, v in enumerate(tree))
+        # a ShardedTensor (a list of blocks) keeps its layout
+        make = getattr(tree, "_tree_new", type(tree))
+        return make(tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                    for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 

@@ -31,6 +31,28 @@ the SSD block its own chunk scan and the RG-LRU block an out-of-place
 scan — no hand-written kernel, since none has a backward (the reference
 trains through none either).  Serving keeps the kernels.
 
+On a mesh (``build_model(cfg, hints)`` with ``activation_hints`` over a
+``launch.mesh.Mesh``): the params are a tree of ``ShardedTensor``s (or
+whole tensors) and every entry point runs its mesh form.  The batch
+splits into ``R`` row blocks over the data axes and each block runs on
+a row of ``M`` devices along ``model`` (``Hints.grid``).  The layer loop
+reads one layer's blocks at a time — under ``train`` inside the
+group's remat, so a replica holds at most one layer's gathered weights
+and the backward reads them again.  ``ATTN`` and ``MOE`` blocks take the
+tensor-parallel forms of ``models/layers.py`` (head TP where the hints
+switch it on, else attention on the gathered weights; the MLP always)
+and MoE its expert-parallel dispatch (``models/moe.py``); the
+embedding and the serving logits are vocab-parallel.  ``SSM``,
+``RECURRENT`` and ``LOCAL_ATTN`` blocks — the reference's explicit code
+has no sharded form of their mixers — compute on their layer's gathered
+weights, a replica at a time, with the same values.  The loss reduces
+the NLL sums and label counts over the replicas separately (the global
+mean).  Prefill writes each attention layer's K/V cache in
+``cache_seq`` blocks over ``model`` (the whole rows of every KV head,
+from the devices that projected them; ``max_len`` rounded up to a
+multiple of the model size); ``decode_fn`` attends each block
+and LSE-combines them (``attention_decode_tp``).
+
 In place: ``decode_fn`` writes each layer's new K/V row (and ring
 position) into the cache it is given (the reference's ``.at[].set``
 makes new arrays), copies each fresh SSM and RG-LRU state into it, and
@@ -46,15 +68,22 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              ShardedTensor, is_sharded,
+                                              piece, whole)
 from repro_torch.models.config import ArchConfig, BlockKind
-from repro_torch.models.layers import (apply_mlp, apply_norm, attention,
-                                       attention_spec, decode_attention,
+from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
+                                       apply_norm, attention,
+                                       attention_decode_tp, attention_spec,
+                                       attention_tp, decode_attention,
                                        dense, layernorm_spec, mlp_spec,
-                                       project_qkv, remat, rmsnorm_spec,
-                                       sinusoidal_rows, sinusoidal_table)
+                                       mlp_tp, project_qkv, remat,
+                                       rmsnorm_spec, sinusoidal_rows,
+                                       sinusoidal_table, split_range)
 from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
                                        mamba2_spec, ssd_decode_step)
-from repro_torch.models.moe import apply_moe, moe_spec
+from repro_torch.models.moe import apply_moe, moe_ep, moe_spec, uses_ep
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_leaves,
                                        tree_map)
@@ -328,7 +357,15 @@ def _unstack(tree, n: int) -> list:
     """The ``n`` layers of a stacked tree, one ``unbind`` a leaf (views,
     no copies): under autograd each leaf's layer gradients are stacked
     once, where ``n`` separate ``_layer`` selects would each make a
-    zero-filled gradient of the whole stack."""
+    zero-filled gradient of the whole stack.  A ``ShardedTensor``'s
+    layers are its masters' (the layer dim is never split)."""
+    if is_sharded(tree):
+        spec = tree.sharding.spec
+        assert not spec or spec[0] is None, spec
+        sh = NamedSharding(tree.sharding.mesh, P(*spec[1:]))
+        parts = [m.unbind(0) for m in tree]
+        return [ShardedTensor(sh, tree.shape[1:], [p[i] for p in parts])
+                for i in range(n)]
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
@@ -453,6 +490,259 @@ def _write_back(dst, src):
 
 
 # ---------------------------------------------------------------------------
+# Mesh forms (module docstring).  ``H[r][j]``: batch block ``r``'s
+# residual, whole, on ``grid[r, j]`` (one tensor where devices repeat).
+
+
+def _whole_tree(tree, dev):
+    return tree_map(lambda x: whole(x, dev), tree, is_leaf=is_sharded)
+
+
+def _rows(x, dev, r: int, R: int):
+    """Row block ``r`` of ``R`` of ``x`` (a tensor or ``ShardedTensor``)
+    on ``dev``."""
+    n = x.shape[0] // R
+    return piece(x, dev, [(r * n, (r + 1) * n)])
+
+
+def _sharded_leaf(mesh, spec, shape, masters) -> ShardedTensor:
+    return ShardedTensor(NamedSharding(mesh, spec), shape, masters)
+
+
+def _stack_sharded(trees: list):
+    """Per-layer trees of ``ShardedTensor`` -> one tree, each leaf's
+    masters stacked over the layers (the layer dim unsplit)."""
+    def stack(*xs):
+        x0 = xs[0]
+        return _sharded_leaf(x0.sharding.mesh, P(None, *x0.sharding.spec),
+                             (len(xs), *x0.shape),
+                             [torch.stack([x[k] for x in xs])
+                              for k in range(len(x0))])
+    return tree_map(stack, trees[0], *trees[1:], is_leaf=is_sharded)
+
+
+def _embed_tp(params, tokens: torch.Tensor, cfg, devs) -> list:
+    """Vocab-parallel lookup: model index ``j`` reads the tokens in its
+    rows of the table, zeros elsewhere, and the ``psum`` adds one row to
+    zeros (exact) -> the embedded rows on every device of the row."""
+    emb = params["embed"]
+    V, M = emb.shape[0], len(devs)
+    parts = []
+    for j, dev in enumerate(devs):
+        lo, hi = split_range(V, M, j)
+        t = tokens.to(dev).long() - lo
+        ok = (t >= 0) & (t < hi - lo)
+        rows = piece(emb, dev, [(lo, hi)])[torch.clamp(t, 0, hi - lo - 1)]
+        parts.append(torch.where(ok[..., None], rows, 0.0))
+    return [h.to(DTYPES[cfg.dtype]) for h in spmd.psum(parts, devs)]
+
+
+def _logits_tp(model, params, h: torch.Tensor, devs) -> torch.Tensor:
+    """h [B,d] on ``devs[0]`` -> logits [B,vocab]: model index ``j``
+    computes its columns of the head, gathered along the row."""
+    cfg = model.cfg
+    V = cfg.padded_vocab()
+    M = len(devs)
+    parts = []
+    for j, dev in enumerate(devs):
+        lo, hi = split_range(V, M, j)
+        if cfg.tie_embeddings:
+            w = piece(params["embed"], dev, [(lo, hi)]).T
+        else:
+            w = piece(params["head"], dev, [(0, cfg.d_model), (lo, hi)])
+        hj = h.to(dev)
+        parts.append(hj @ w.to(hj.dtype))
+    return spmd.all_gather(parts, -1, devs)[0][:, :cfg.vocab]
+
+
+def _kv_blocks(kvs: list, dev, lo: int, hi: int, Lb: int):
+    """Cache block of positions ``lo..lo+Lb-1`` (the prompt's rows below
+    ``hi``), every KV head, on ``dev``: each head range from the first
+    device that projected it."""
+    out = []
+    for which in (0, 1):
+        parts, covered = [], 0
+        for kv in kvs:
+            x, (klo, khi) = kv[which], kv[2]
+            if khi <= covered:
+                continue
+            a = max(covered, klo)
+            parts.append(x[:, lo:hi, a - klo:khi - klo].to(dev))
+            covered = khi
+        blk = torch.cat(parts, 2) if len(parts) > 1 else parts[0]
+        out.append(F.pad(blk, (0, 0, 0, 0, 0, Lb - blk.shape[1])))
+    return out
+
+
+def _attn_cache_sharded(kv_rows: list, hints: Hints, grid, max_len: int):
+    """One attention layer's prefill K/V -> the cache entry {"k", "v"} as
+    ``ShardedTensor``s [B, M * ceil(max_len / M), Hkv, hd]: batch over
+    the data axes, ``cache_seq`` over the ``M`` model devices.  Where
+    ``M`` does not divide ``max_len`` the last block's rows past it are
+    padding that no decode step reaches (their positions are never
+    valid)."""
+    R, M = grid.shape
+    Lb = -(-max_len // M)
+    ks, vs = [], []
+    S = kv_rows[0][0][0].shape[1]
+    for r in range(R):
+        for b in range(M):
+            k, v = _kv_blocks(kv_rows[r], grid[r, b], b * Lb,
+                              min(S, (b + 1) * Lb), Lb)
+            ks.append(k)
+            vs.append(v)
+    Br, _, Hkv, hd = ks[0].shape
+    spec = P(hints.dp(), "model")
+    shape = (Br * R, M * Lb, Hkv, hd)
+    return {"k": _sharded_leaf(hints.mesh, spec, shape, ks),
+            "v": _sharded_leaf(hints.mesh, spec, shape, vs)}
+
+
+def _rows_sharded(entries: list, hints: Hints):
+    """Per-replica trees (replica ``r``'s rows on ``grid[r, 0]``) -> one
+    tree of ``ShardedTensor``s, batch over the data axes."""
+    R = len(entries)
+    return tree_map(lambda *xs: _sharded_leaf(
+        hints.mesh, P(hints.dp()), (xs[0].shape[0] * R, *xs[0].shape[1:]),
+        list(xs)), entries[0], *entries[1:])
+
+
+def _ffn_sharded(p, X2, kind, cfg, hints, grid, decode: bool = False):
+    """The feed-forward half of an attention block over the grid ->
+    (per-device outputs, aux)."""
+    R, M = grid.shape
+    dev0 = grid[0, 0]
+    aux = torch.zeros((), dtype=torch.float32, device=dev0)
+    if kind != BlockKind.MOE:
+        return [mlp_tp(p["mlp"], X2[r], cfg, list(grid[r]))
+                for r in range(R)], aux
+    if not decode and uses_ep(cfg, hints):
+        return moe_ep(p["moe"], X2, cfg, hints, grid)
+    # the reference's global-shape dispatch: every replica's tokens
+    # together (capacity and aux over the whole batch)
+    x = torch.cat([X2[r][0].to(dev0) for r in range(R)], 0)
+    y, aux = apply_moe(_whole_tree(p["moe"], dev0), x, cfg)
+    y = y.chunk(R, 0)
+    return [[y[r].to(d) for d in grid[r]] for r in range(R)], aux
+
+
+def _block_sharded(p, H, kind, cfg, hints, grid, positions,
+                   collect_cache: bool, max_len: int, train: bool):
+    """One block over the grid -> (H', aux, cache entry | None)."""
+    R, M = grid.shape
+    H = [list(row) for row in H]
+    if kind in (BlockKind.ATTN, BlockKind.MOE):
+        kv_rows = []
+        for r in range(R):
+            devs = list(grid[r])
+            xs = [apply_norm(_whole_tree(p["ln1"], d), h, cfg.norm)
+                  for h, d in zip(H[r], devs)]
+            if hints.head_tp():
+                outs, kvs = attention_tp(p["attn"], xs, cfg, positions[r],
+                                         devs, train=train)
+            else:
+                pa = _whole_tree(p["attn"], devs[0])
+                q, k, v = project_qkv(pa, xs[0], cfg, positions[r][0])
+                a = attention(q, k, v, cfg, train=train)
+                o = dense(pa["o"], a.reshape(*a.shape[:2], -1))
+                outs = [o.to(d) for d in devs]
+                kvs = [(k, v, (0, cfg.n_kv_heads))]
+            H[r] = [h + o for h, o in zip(H[r], outs)]
+            kv_rows.append(kvs)
+        X2 = [[apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
+               for h, d in zip(H[r], grid[r])] for r in range(R)]
+        ys, aux = _ffn_sharded(p, X2, kind, cfg, hints, grid)
+        H = [[h + y for h, y in zip(H[r], ys[r])] for r in range(R)]
+        cache = (_attn_cache_sharded(kv_rows, hints, grid, max_len)
+                 if collect_cache else None)
+        return H, aux, cache
+    # no sharded form of the mixer: the layer's weights gathered, a
+    # replica at a time
+    aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
+    entries = []
+    for r in range(R):
+        devs = list(grid[r])
+        h, a, c = apply_block(_whole_tree(p, devs[0]), H[r][0], kind, cfg,
+                              positions[r][0], collect_cache, max_len,
+                              train)
+        H[r] = [h.to(d) for d in devs]
+        aux = aux + a.to(aux.device)
+        entries.append(c)
+    return H, aux, (_rows_sharded(entries, hints) if collect_cache
+                    else None)
+
+
+def _block_decode_sharded(p, H, kind, cfg, hints, grid, cache, lens):
+    """One block's decode step over the grid; writes ``cache`` (this
+    layer's ``ShardedTensor`` views) in place -> H'."""
+    R, M = grid.shape
+    H = [list(row) for row in H]
+    if kind in (BlockKind.ATTN, BlockKind.MOE):
+        for r in range(R):
+            devs = list(grid[r])
+            xs = [apply_norm(_whole_tree(p["ln1"], d), h, cfg.norm)
+                  for h, d in zip(H[r], devs)]
+            ls = [lens[r].to(d) for d in devs]
+            outs = attention_decode_tp(
+                p["attn"], xs, cfg, ls, devs,
+                list(cache["k"][r * M:(r + 1) * M]),
+                list(cache["v"][r * M:(r + 1) * M]))
+            H[r] = [h + o for h, o in zip(H[r], outs)]
+        X2 = [[apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
+               for h, d in zip(H[r], grid[r])] for r in range(R)]
+        ys, _ = _ffn_sharded(p, X2, kind, cfg, hints, grid, decode=True)
+        return [[h + y for h, y in zip(H[r], ys[r])] for r in range(R)]
+    for r in range(R):
+        devs = list(grid[r])
+        cr = tree_map(lambda x: x[r], cache, is_leaf=is_sharded)
+        h, c = apply_block_decode(_whole_tree(p, devs[0]), H[r][0], kind,
+                                  cfg, cr, lens[r])
+        _write_back(cr, c)
+        H[r] = [h.to(d) for d in devs]
+    return H
+
+
+def _trunk_sharded(params, H, cfg, hints, grid, positions,
+                   collect_cache: bool = False, max_len: int = 0,
+                   train: bool = False):
+    """``trunk`` over the grid -> (H, aux, cache|None)."""
+    group, n_groups, tail = _layer_groups(cfg)
+
+    def group_body(H, gp):
+        aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
+        gc = {}
+        for i, kind in enumerate(group):
+            H, a, gc[f"b{i}"] = _block_sharded(
+                gp[f"b{i}"], H, kind, cfg, hints, grid, positions,
+                collect_cache, max_len, train)
+            aux = aux + a
+        return H, aux, gc
+
+    aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
+    caches = []
+    for gp in _unstack(params["blocks"], n_groups):
+        if train:
+            H, a = remat(lambda H, gp: group_body(H, gp)[:2], H, gp)
+        else:
+            H, a, gc = group_body(H, gp)
+            caches.append(gc)
+        aux = aux + a
+    tail_caches = []
+    for i, kind in enumerate(tail):
+        H, a, c = _block_sharded(params["tail"][i], H, kind, cfg, hints,
+                                 grid, positions, collect_cache, max_len,
+                                 train)
+        aux = aux + a
+        tail_caches.append(c)
+    if not collect_cache:
+        return H, aux, None
+    cache = {"layers": _stack_sharded(caches)}
+    if tail:
+        cache["tail"] = tail_caches
+    return H, aux, cache
+
+
+# ---------------------------------------------------------------------------
 # Public model API
 
 
@@ -460,10 +750,20 @@ class DecoderLM:
     """Decoder-only model (pure-function methods over a params tree).
 
     ``device`` (default ``"cuda"``) is where its params live; the model
-    raises at construction when that is CUDA and torch sees no card."""
+    raises at construction when that is CUDA and torch sees no card.
+    ``hints`` with a mesh (``activation_hints``) make every entry point
+    run its mesh form (module docstring); the outputs land on the
+    grid's first device."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, hints: Hints = NO_HINTS,
+                 device="cuda"):
         self.cfg = cfg
+        self.hints = hints
+        if hints.sharded:
+            self.grid = hints.grid()
+            for d in set(hints.mesh.device_list()):
+                check_device(d)
+            device = self.grid[0, 0]
         self.device = check_device(device)
 
     # -- params ------------------------------------------------------------
@@ -488,6 +788,11 @@ class DecoderLM:
         loss), cache|None); positions run over all P + S rows.
         ``train``: the training route (module docstring)."""
         cfg = self.cfg
+        if self.hints.sharded:
+            H, aux, cache = self._hidden_rows(params, tokens, patches,
+                                              collect_cache, max_len, train)
+            h = torch.cat([row[0].to(self.device) for row in H], 0)
+            return h, aux, cache
         h = _embed_tokens(params, tokens, cfg)
         if patches is not None:
             h = torch.cat([patches.to(h.dtype), h], dim=1)
@@ -499,11 +804,69 @@ class DecoderLM:
         h = apply_norm(params["final_norm"], h, cfg.norm)
         return h, aux, cache
 
+    def _hidden_rows(self, params, tokens, patches=None,
+                     collect_cache: bool = False, max_len: int = 0,
+                     train: bool = False):
+        """``hidden`` over the grid -> (H: each batch block's final-normed
+        rows on every device of its row, aux, cache|None).  ``tokens`` and
+        ``patches`` may be whole or ``ShardedTensor``s."""
+        cfg, grid = self.cfg, self.grid
+        R, M = grid.shape
+        H, positions = [], []
+        for r in range(R):
+            devs = list(grid[r])
+            hs = _embed_tp(params, _rows(tokens, devs[0], r, R), cfg, devs)
+            if patches is not None:
+                pr = _rows(patches, devs[0], r, R)
+                hs = [torch.cat([pr.to(h.device, h.dtype), h], dim=1)
+                      for h in hs]
+            hs = [_add_positional(h, cfg) for h in hs]
+            Br, S = hs[0].shape[:2]
+            positions.append([torch.arange(S, device=d).expand(Br, S)
+                              for d in devs])
+            H.append(hs)
+        H, aux, cache = _trunk_sharded(params, H, cfg, self.hints, grid,
+                                       positions, collect_cache, max_len,
+                                       train)
+        H = [[apply_norm(_whole_tree(params["final_norm"], d), h, cfg.norm)
+              for h, d in zip(row, grid[r])] for r, row in enumerate(H)]
+        return H, aux, cache
+
+    def _loss_sharded(self, params, batch):
+        """The loss over the grid: each replica's NLL sum and label count
+        on its rows, reduced separately (the global mean)."""
+        cfg, grid = self.cfg, self.grid
+        R = grid.shape[0]
+        H, aux, _ = self._hidden_rows(params, batch["tokens"],
+                                      batch.get("patches"), train=True)
+        tots, cnts = [], []
+        for r in range(R):
+            dev = grid[r, 0]
+            labels = _rows(batch["labels"], dev, r, R)
+            if "patches" in batch:
+                P_ = batch["patches"].shape[1]
+                labels = torch.cat([labels.new_full((labels.shape[0], P_),
+                                                    -1), labels], dim=1)
+            head = (whole(params["embed"], dev).T if cfg.tie_embeddings
+                    else whole(params["head"], dev))
+            t, c = chunked_ce(H[r][0], head, labels, cfg.logit_chunk,
+                              cfg.vocab)
+            tots.append(t)
+            cnts.append(c)
+        tot = spmd.psum(tots, [self.device] * R)[0]
+        cnt = spmd.psum(cnts, [self.device] * R)[0]
+        loss = tot / torch.clamp(cnt, min=1)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux / max(1, cfg.n_layers)
+        return loss, {"nll": tot, "tokens": cnt, "aux": aux}
+
     def loss_fn(self, params, batch):
         """batch: {tokens [B,S], labels [B,S] (-1: no loss), patches?
         [B,P,d]} -> (loss, {"nll", "tokens", "aux"}).  The loss is the
         mean NLL over the labelled tokens (none over the VLM's patch
         positions), plus ``0.01 * aux / n_layers`` for a MoE model."""
+        if self.hints.sharded:
+            return self._loss_sharded(params, batch)
         cfg = self.cfg
         h, aux, _ = self.hidden(params, batch["tokens"],
                                 batch.get("patches"), train=True)
@@ -524,6 +887,8 @@ class DecoderLM:
     def prefill_fn(self, params, tokens, max_len: int, patches=None):
         """-> (last-position logits [B,V], cache); ``lens`` counts the
         patches too."""
+        if self.hints.sharded:
+            return self._prefill_sharded(params, tokens, max_len, patches)
         h, _, cache = self.hidden(params, tokens, patches,
                                   collect_cache=True, max_len=max_len)
         logits = self._logits(params, h[:, -1, :])
@@ -531,11 +896,62 @@ class DecoderLM:
                                    dtype=torch.int32, device=h.device)
         return logits, cache
 
+    def _prefill_sharded(self, params, tokens, max_len: int, patches):
+        grid = self.grid
+        R = grid.shape[0]
+        H, _, cache = self._hidden_rows(params, tokens, patches,
+                                        collect_cache=True, max_len=max_len)
+        logits = torch.cat([_logits_tp(self, params, H[r][0][:, -1, :],
+                                       list(grid[r])).to(self.device)
+                            for r in range(R)], 0)
+        S = H[0][0].shape[1]
+        cache["lens"] = _rows_sharded(
+            [torch.full((H[r][0].shape[0],), S, dtype=torch.int32,
+                        device=grid[r, 0]) for r in range(R)], self.hints)
+        return logits, cache
+
+    @torch.no_grad()
+    def _decode_sharded(self, params, tok, cache: dict):
+        cfg, grid = self.cfg, self.grid
+        R, M = grid.shape
+        group, n_groups, tail = _layer_groups(cfg)
+        lens = list(cache["lens"])
+        H = []
+        for r in range(R):
+            devs = list(grid[r])
+            hs = _embed_tp(params, _rows(tok, devs[0], r, R)[:, None], cfg,
+                           devs)
+            if cfg.pos == "sinusoidal":
+                hs = [h + sinusoidal_rows(lens[r].to(h.device), h.shape[-1])[
+                    :, None, :].to(h.dtype) for h in hs]
+            H.append(hs)
+        hints = self.hints
+        for gp, gc in zip(_unstack(params["blocks"], n_groups),
+                          _unstack(cache["layers"], n_groups)):
+            for i, kind in enumerate(group):
+                H = _block_decode_sharded(gp[f"b{i}"], H, kind, cfg, hints,
+                                          grid, gc[f"b{i}"], lens)
+        for i, kind in enumerate(tail):
+            H = _block_decode_sharded(params["tail"][i], H, kind, cfg,
+                                      hints, grid, cache["tail"][i], lens)
+        for m in cache["lens"]:
+            m += 1
+        logits = []
+        for r in range(R):
+            devs = list(grid[r])
+            h = apply_norm(_whole_tree(params["final_norm"], devs[0]),
+                           H[r][0], cfg.norm)
+            logits.append(_logits_tp(self, params, h[:, 0, :], devs).to(
+                self.device))
+        return torch.cat(logits, 0), cache
+
     @torch.no_grad()
     def decode_fn(self, params, tok: torch.Tensor, cache: dict):
         """tok [B] int -> (logits [B,V], cache'); updates ``cache`` in
         place and returns it with ``lens`` advanced.  A sinusoidal row is
         computed at the device tensor ``lens``: no host sync."""
+        if self.hints.sharded:
+            return self._decode_sharded(params, tok, cache)
         cfg = self.cfg
         group, n_groups, tail = _layer_groups(cfg)
         lens = cache["lens"]

@@ -7,13 +7,18 @@ params/opt, step index); the data pipeline is a pure function of the
 step, so a restart resumes bit-identically from the last committed
 checkpoint.
 
-The port runs the reference's ``mesh=None`` path on one ``device``
-(``"cuda"`` unless the caller asks for the CPU; it raises without a
-card).  The step is ``build_train_step``'s, called as it is: there is no
-jit, and no donation, since ``adamw_update`` already writes the params
-and the moments in place.  A mesh waits for the LM's sharding (ROADMAP
-A11.5).  ``run`` keeps its losses and step timer on the trainer
-(``losses``, ``timer``), where a supervisor finds them after a crash.
+Without a mesh it runs on one ``device`` (``"cuda"`` unless the caller
+asks for the CPU; it raises without a card).  With one (``mesh``, a
+``launch.mesh.Mesh``), as the reference: the model is built with
+``activation_hints(cfg, mesh, global_batch, "train")``, the params and
+AdamW's ``m``/``v`` are laid out by ``shardings_for`` (``ShardedTensor``
+blocks on the mesh's devices) and each batch is split by
+``batch_shardings``; checkpoints hold whole arrays and restore onto the
+state's layout.  The step is ``build_train_step``'s, called as it is:
+there is no jit, and no donation, since ``adamw_update`` already writes
+the params and the moments in place.  ``run`` keeps its losses and step
+timer on the trainer (``losses``, ``timer``), where a supervisor finds
+them after a crash.
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed.sharding import (activation_hints,
+                                              batch_shardings, shardings_for)
 from repro_torch.models import build_model, init_params
-from repro_torch.models.params import check_device, tree_map
+from repro_torch.models.layers import NO_HINTS
+from repro_torch.models.params import tree_map
 from repro_torch.runtime import HeartbeatMonitor, StepTimer
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import build_train_step, init_train_state
@@ -48,16 +56,15 @@ class Trainer:
     def __init__(self, arch_cfg, loader, opt_cfg: OptimizerConfig,
                  tcfg: TrainerConfig, mesh=None, global_batch: int = 8,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) waits for the LM's sharding (ROADMAP "
-                "A11.5: activation_hints, shardings_for); the port trains "
-                "on one device")
-        self.device = check_device(device)
         self.cfg = arch_cfg
         self.tcfg = tcfg
         self.loader = loader
-        self.model = build_model(arch_cfg, device=self.device)
+        self.mesh = mesh
+        hints = (activation_hints(arch_cfg, mesh, global_batch, "train")
+                 if mesh is not None else NO_HINTS)
+        # on a mesh the model runs on the mesh's devices, not ``device``
+        self.model = build_model(arch_cfg, hints, device=device)
+        self.device = self.model.device
         self.step_fn = build_train_step(self.model, opt_cfg, tcfg.accum)
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
@@ -66,8 +73,23 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
     def init_state(self):
-        return init_train_state(init_params(self.model.spec(),
-                                            self.tcfg.seed, self.device))
+        params = init_params(self.model.spec(), self.tcfg.seed, self.device)
+        if self.mesh is not None:
+            # m and v follow the params' layout (init_opt_state maps the
+            # blocks)
+            params = tree_map(lambda x, sh: sh.place(x), params,
+                              shardings_for(self.model.spec(), self.mesh))
+        return init_train_state(params)
+
+    def batch(self, step: int) -> dict:
+        """The loader's batch for ``step`` on the device, split over the
+        mesh's data axes where there is one."""
+        batch = tree_map(lambda x: torch.as_tensor(x, device=self.device),
+                         self.loader(step))
+        if self.mesh is None:
+            return batch
+        return tree_map(lambda x, sh: sh.place(x), batch, batch_shardings(
+            batch, self.mesh, self.global_batch))
 
     def maybe_restore(self, state):
         start = 0
@@ -89,8 +111,7 @@ class Trainer:
         losses = self.losses = []
         try:
             for step in range(start, self.tcfg.steps):
-                batch = tree_map(lambda x: torch.as_tensor(
-                    x, device=self.device), self.loader(step))
+                batch = self.batch(step)
                 timer.start()
                 state, metrics = self.step_fn(state, batch)
                 loss = float(metrics["loss"])

@@ -11,12 +11,14 @@ reference's.
 * ``save_async`` followed by an in-place change of every leaf (what
   ``adamw_update`` does in the next step) still restores the values from
   before the change;
-* ``restore(..., shardings=...)`` raises naming A11.5.
+* ``restore(..., shardings=...)`` lays each leaf out on a mesh, and the
+  reference's elastic test runs against the port: a tree saved under a
+  ``data 8`` layout over ``[cpu] * 8`` restores under a ``2x4`` mesh with
+  new shardings, every value equal and every block on its device; a
+  sharded leaf is saved whole, as the reference's global arrays are.
 
-The reference's elastic test (a restore onto a new mesh) has no port
-counterpart until the LM's sharding (ROADMAP A11.5).  This file imports
-nothing of ``repro.core`` or ``repro.kernels`` (they turn on jax's x64
-mode).
+This file imports nothing of ``repro.core`` or ``repro.kernels`` (they
+turn on jax's x64 mode).
 """
 
 import json
@@ -205,10 +207,59 @@ def test_restore_checks_shapes_and_casts_to_skeleton(tmp_path):
 
 
 def test_restore_shardings_waits_for_a11_5(tmp_path):
+    """``shardings=`` (once a stub naming A11.5) lays the restored leaves
+    out: a ``NamedSharding`` leaf gives a ``ShardedTensor`` of the saved
+    values, the others keep the skeleton's device and dtype."""
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  ShardedTensor)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh((2, 4), devices=["cpu"] * 8)
     cm = CheckpointManager(str(tmp_path))
     cm.save(1, tree())
-    with pytest.raises(NotImplementedError, match="A11.5"):
-        cm.restore(1, tree(), shardings={"w": object()})
+    sh = {"params": {"w": NamedSharding(mesh, P(None, "model")), "b": None},
+          "opt": {"m": [None, None], "step": None}}
+    got = cm.restore(1, tree(), shardings=sh)
+    w = got["params"]["w"]
+    assert isinstance(w, ShardedTensor) and w.sharding == sh["params"]["w"]
+    assert len(w) == 4 and all(tuple(b.shape) == (3, 1) for b in w)
+    torch.testing.assert_close(w.gather("cpu"), tree()["params"]["w"])
+    for a, b in zip(tree_leaves(got, lambda x: isinstance(x, ShardedTensor)
+                                ), tree_leaves(tree())):
+        if not isinstance(a, ShardedTensor):
+            assert torch.equal(a, b) and a.dtype == b.dtype
+
+
+def test_elastic_restore_resharding(tmp_path):
+    """The reference's elastic test: saved under ``data 8``, restored under
+    a ``2x4`` mesh with another layout."""
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  ShardedTensor)
+    from repro_torch.launch.mesh import make_host_mesh
+    t = {"w": torch.arange(64.0).reshape(8, 8)}
+    mesh1 = make_host_mesh((8,), ("data",), devices=["cpu"] * 8)
+    t1 = {"w": NamedSharding(mesh1, P("data")).place(t["w"])}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, t1)
+    with np.load(tmp_path / "step_000000001" / "shard_00000.npz") as data:
+        np.testing.assert_array_equal(data["['w']"], t["w"].numpy())
+    mesh2 = make_host_mesh((2, 4), devices=["cpu"] * 8)
+    sh = {"w": NamedSharding(mesh2, P("model", "data"))}
+    got = cm.restore(1, t, shardings=sh)
+    assert isinstance(got["w"], ShardedTensor)
+    assert got["w"].sharding == sh["w"]
+    np.testing.assert_array_equal(got["w"].gather("cpu").numpy(),
+                                  t["w"].numpy())
+    for coord, block in zip(np.ndindex(2, 4), got["w"].blocks()):
+        assert block.device == mesh2.devices[coord]
+        i, j = coord
+        np.testing.assert_array_equal(block.numpy(),
+                                      t["w"][2 * j:2 * j + 2,
+                                             4 * i:4 * i + 4].numpy())
+    # restoring onto the sharded skeleton keeps its layout
+    again = cm.restore(1, t1)
+    assert again["w"].sharding == t1["w"].sharding
+    np.testing.assert_array_equal(again["w"].gather("cpu").numpy(),
+                                  t["w"].numpy())
 
 
 def test_async_write_error_raises_in_wait(tmp_path, monkeypatch):

@@ -1054,3 +1054,153 @@ def test_cuda_save_async_snapshot_survives_in_place_update(cuda, tmp_path):
     got = cm.restore(1, t)
     for a, b in zip(before, tree_leaves(got)):
         assert b.is_cuda and torch.equal(b.cpu(), a)
+
+
+# -- the LM's sharded forms over one card's device list -------------------------
+
+
+def cuda_mesh(cuda, shape=(2, 4), axes=("data", "model")):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(shape, axes, devices=["cuda:0"] * int(
+        np.prod(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
+                                  "mamba2-1.3b"])
+def test_cuda_sharded_forms_equal_cpu(cuda, arch):
+    """A smoke model on a 2x4 mesh over ``[cuda:0] * 8`` (float32, B 4,
+    64 positions): its loss, prefill (the KV cache split over ``model``)
+    and two decode steps against the single-device model on the CPU on
+    the same weights, within 1e-4 of the scale; the sharded prefill
+    launches its kernel on every head shard (``R * M`` a layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (activation_hints,
+                                                  shardings_for)
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    p_cpu = init_params(cpu.spec(), 0, device="cpu")
+    mesh = cuda_mesh(cuda)
+    model = build_model(cfg, activation_hints(cfg, mesh, 4, "train"))
+    p_gpu = tree_map(lambda x, sh: sh.place(x.to(cuda)), p_cpu,
+                     shardings_for(cpu.spec(), mesh))
+    r = rng("csharded", arch)
+    toks = T(r.randint(0, cfg.vocab, (4, 64)).astype(np.int32))
+    batch = {"tokens": toks, "labels": T(r.randint(0, cfg.vocab, (4, 64))
+                                         .astype(np.int32))}
+    outs = []
+    for m, p, dev in ((model, p_gpu, cuda), (cpu, p_cpu, "cpu")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = m.loss_fn(p, b)
+        kernels.reset_counts()
+        with torch.no_grad():
+            logits, cache = m.prefill_fn(p, b["tokens"][:, :62], 64)
+        launched = dict(kernels.LAUNCHES)
+        steps = [loss, logits]
+        for i in (62, 63):
+            logits, cache = m.decode_fn(p, b["tokens"][:, i], cache)
+            steps.append(logits)
+        outs.append([x.float().cpu() for x in steps])
+        if dev == cuda:
+            name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
+            per_layer = 2 if cfg.family == "ssm" else 8   # R or R * M
+            assert launched[name] == per_layer * cfg.n_layers
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_train_step_equals_cpu(cuda):
+    """The FSDP+TP step (qwen2-7b smoke, float32, B 8 x S 64) on a 2x4
+    mesh over ``[cuda:0] * 8`` against the single-device step on the CPU:
+    the loss within 1e-4, the params within 1e-5 where the gradient is
+    not float32 noise and within 2 lr everywhere (AdamW's first step is
+    about ``lr * sign(g)``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (activation_hints,
+                                                  is_sharded, shardings_for)
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state, loss_and_grads)
+    cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    p_cpu = init_params(cpu.spec(), 0, device="cpu")
+    mesh = cuda_mesh(cuda)
+    model = build_model(cfg, activation_hints(cfg, mesh, 8, "train"))
+    p_gpu = tree_map(lambda x, sh: sh.place(x.to(cuda)), p_cpu,
+                     shardings_for(cpu.spec(), mesh))
+    r = rng("cstep")
+    batch = {k: T(r.randint(0, cfg.vocab, (8, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    _, _, g = loss_and_grads(cpu, p_cpu, batch)
+    top = max(float(x.abs().max()) for x in tree_leaves(g))
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    s0, m0 = build_train_step(cpu, opt)(init_train_state(p_cpu), batch)
+    s1, m1 = build_train_step(model, opt)(
+        init_train_state(p_gpu), {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(float(m1["loss"]) - float(m0["loss"])) < 1e-4
+    for a, b, gl in zip(tree_leaves(tree_map(
+            lambda x: x.gather("cpu"), s1["params"], is_leaf=is_sharded)),
+            tree_leaves(s0["params"]), tree_leaves(g)):
+        d = (a - b).abs()
+        noise = gl.abs() <= 1e-5 * max(float(gl.abs().max()), 1e-3 * top)
+        assert float(torch.where(noise, 0.0, d).max()) <= 1e-5
+        assert float(d.max()) <= 2e-3 + 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_and_compressed_step(cuda):
+    """``pipeline_apply`` over ``[cuda:0] * 4`` against the sequential
+    loop (1e-5), and the int8 compressed step over ``data 8`` on the card
+    against the same step on ``[cpu] * 8`` (loss within 1e-4, params
+    within 2 lr: an int8 code may flip at a near-tie)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig,
+                                   build_dp_compressed_step,
+                                   init_compressed_state)
+    r = rng("cpipe")
+    W = T((r.randn(8, 16, 16) * 0.2).astype(np.float32)).to(cuda)
+    h = T(r.randn(8, 16).astype(np.float32)).to(cuda)
+    want = h
+    for i in range(8):
+        want = torch.tanh(want @ W[i])
+    got = pipeline_apply(lambda w, x: torch.tanh(x @ w), W, h,
+                         mesh=cuda_mesh(cuda, (4,), ("pod",)), n_stages=4,
+                         n_micro=4, axis="pod")
+    assert float((got - want).abs().max()) <= 1e-5
+    cfg = dataclasses.replace(get_config("yi-6b", smoke=True),
+                              dtype="float32")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = {k: T(r.randint(0, cfg.vocab, (8, 32)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    p_cpu = init_params(build_model(cfg, device="cpu").spec(), 0,
+                        device="cpu")
+    runs = []
+    for dev, mesh in ((cuda, cuda_mesh(cuda, (8,), ("data",))),
+                      ("cpu", make_host_mesh((8,), ("data",),
+                                             devices=["cpu"] * 8))):
+        params = tree_map(lambda x: x.to(dev), p_cpu)
+        model = build_model(cfg, device=dev)
+        s, m = build_dp_compressed_step(model, opt, mesh)(
+            init_compressed_state(params, 8, mesh),
+            {k: v.to(dev) for k, v in batch.items()})
+        runs.append((float(m["loss"]), [x.cpu() for x in tree_leaves(
+            s["params"])]))
+    assert abs(runs[0][0] - runs[1][0]) < 1e-4
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert float((a - b).abs().max()) <= 2e-3 + 1e-6

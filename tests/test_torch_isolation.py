@@ -161,6 +161,38 @@ def test_training_entry_points_refuse_to_run_without_cuda(monkeypatch):
             train.main()
 
 
+def test_walk_reaches_the_lm_sharding():
+    """The import check walks the mesh builders and the collectives too,
+    so the no-jax, no-``repro`` rule covers them."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.launch.mesh", "repro_torch.distributed.spmd",
+            "repro_torch.distributed.sharding"} <= names
+
+
+def test_meshes_refuse_to_fold_without_cuda(monkeypatch):
+    """A mesh asked for without a device list needs that many CUDA
+    devices: none fold onto the CPU, and a model on a mesh of CUDA
+    devices raises without a card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import activation_hints
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (M.make_host_mesh, M.make_production_mesh):
+        with pytest.raises(ValueError, match="CUDA devices"):
+            make()
+    cfg = get_config("yi-6b", smoke=True)
+    mesh = M.make_host_mesh((2, 4), devices=["cuda:0"] * 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, activation_hints(cfg, mesh, 8, "train"))
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

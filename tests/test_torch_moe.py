@@ -130,7 +130,21 @@ def test_dropped_pairs_accumulate_and_reset():
     assert TMOE.dropped_pairs() == 0
 
 
-def test_apply_moe_expert_parallel_raises():
+@pytest.mark.parametrize("model", [2, 4])
+def test_apply_moe_expert_parallel_equals_global_form(model):
+    """The expert-parallel form (once a stub naming A11.5) over a mesh of
+    ``model`` expert shards (``[cpu] * 8``) equals the global form where
+    no pair can drop (capacity factor 4.0): y within 1e-5, aux within
+    1e-6."""
+    from repro_torch.distributed.sharding import activation_hints
+    from repro_torch.launch.mesh import make_host_mesh
     cfg, _, tp, x = moe_case("dbrx-132b", "float32", 4.0)
-    with pytest.raises(NotImplementedError, match=r"A11\.5"):
-        TMOE.apply_moe(tp, torch.tensor(x), cfg, expert_shards=2)
+    mesh = make_host_mesh((8 // model, model), devices=["cpu"] * 8)
+    hints = activation_hints(cfg, mesh, x.shape[0], "train")
+    assert TMOE.uses_ep(cfg, hints)
+    y0, a0 = TMOE.apply_moe(tp, torch.tensor(x), cfg)
+    TMOE.reset_dropped()
+    y1, a1 = TMOE.apply_moe(tp, torch.tensor(x), cfg, hints)
+    assert TMOE.dropped_pairs() == 0
+    torch.testing.assert_close(y1, y0, atol=1e-5, rtol=0)
+    assert abs(float(a1) - float(a0)) < 1e-6

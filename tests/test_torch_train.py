@@ -317,10 +317,17 @@ def test_init_train_state_rejects_16bit_store():
     st = init_train_state(init_params(model.spec(), 0, device="cpu"))
     assert all(m.dtype == torch.float32 and not m.any()
                for m in tree_leaves(st["opt"]["m"]))
-    with pytest.raises(NotImplementedError, match="A11.5"):
-        TS.build_dp_compressed_step(model, OptimizerConfig(), None)
-    with pytest.raises(NotImplementedError, match="A11.5"):
-        TS.init_compressed_state(st["params"], 2)
+    # the compressed step's state (once a stub naming A11.5): per-device
+    # float32 residuals stacked [n_dev, ...] beside the same AdamW state
+    cst = TS.init_compressed_state(st["params"], 2)
+    for p, r in zip(tree_leaves(st["params"]),
+                    tree_leaves(cst["grad_residual"])):
+        assert r.shape == (2, *p.shape) and r.dtype == torch.float32
+        assert not r.any()
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh((2,), ("data",), devices=["cpu"] * 2)
+    assert callable(TS.build_dp_compressed_step(model, OptimizerConfig(),
+                                                mesh))
 
 
 def test_split_micro():
