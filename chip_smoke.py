@@ -226,7 +226,26 @@ Phases, each fatal on failure:
    cuda:0`` in a child: 20 steps whose loss falls, then 30 on the same
    checkpoint directory, which must restore step 20 and run 10; without
    ``--devices`` it must fail naming the flag (one card);
-9. a ``{"kernels": [...]}`` line with every ported kernel's numbers
+9. dry-run phase (``dryrun_phase``), after the sharding phase: (a)
+   starts in CPU children while (b) runs on the card.  (b) The
+   dry run held against the card: ``yi-6b`` whole in the 16-bit store,
+   the LM phase's B 2 x 2048 prefill (``max_len`` 2064), traced on
+   ``meta:0`` (``launch.dryrun.trace_cell``: shape-only tensors, a
+   ``launch.hlo_analysis.Recorder``), then run on ``cuda:0`` under the
+   same recorder: the ops by aten name and the products identical, no
+   op off the device, the kernel records equal to the ``kernels.LAUNCHES``
+   deltas, the argument bytes equal to the bytes the card holds for the
+   weights and tokens, the predicted new allocations within
+   ``DRYRUN_PEAK_BAND`` of ``torch.cuda.max_memory_allocated``'s
+   increment, and the measured prefill (CUDA events, median of 3 warm
+   runs) at or above the roofline bound ``max(compute_s, memory_s)``
+   with the ratio printed.  (a) ``python -m repro_torch.launch.dryrun``
+   on the production 16x16 mesh of fake devices for ``DRYRUN_CELLS``
+   (yi-6b prefill_32k and decode_32k, mamba2-1.3b long_500k and the
+   closure cell), all at once in children that touch no card, one line
+   each with the record's memory, roofline and bottleneck; a timed
+   ``dryrun_all`` line;
+10. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (the fact kernels' launches counted over the engine, demand, serving,
    launcher, sharded and trainer phases; ``queued`` lists the kernels
    still to port: none); attention's row
@@ -243,7 +262,7 @@ Phases, each fatal on failure:
    (``gram_ms``) and the bound at the float32 rate without tensor cores
    (``bound_old_ms``) beside the TF32 one; attention's row adds the
    sharding phase's launches on yi's head shards;
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
 and cuDNN) wherever a kernel is compared with its plain version.
@@ -3920,6 +3939,230 @@ def sharding_phase(torch, seed: int, device="cuda") -> dict:
     return parts["serve"]
 
 
+# the dry run's production cells on the 16x16 mesh of fake devices, each
+# in a child process, all at once; the others take from minutes to hours
+# of CPU (PERF.md, the dry-run table) and are left out of the smoke
+DRYRUN_CELLS = (("yi-6b", "prefill_32k"), ("yi-6b", "decode_32k"),
+                ("mamba2-1.3b", "long_500k"), ("hiperfact", ""))
+DRYRUN_TIMEOUT = 400
+# the dry run's prediction of the yi-6b prefill's new allocations against
+# the card's max_memory_allocated increment: the caching allocator rounds
+# each block up to 512 bytes and kernels' internal temporaries come on top
+DRYRUN_PEAK_BAND = (0.98, 1.10)
+
+
+def dryrun_start(cells=DRYRUN_CELLS) -> list:
+    """``python -m repro_torch.launch.dryrun`` on each cell, all at once
+    in children that touch no card -> [(arch, shape, child)]."""
+    out = ROOT / "build" / "dryrun"
+    procs = []
+    for arch, shape in cells:
+        args = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--mesh", "single", "--out", str(out)]
+        if shape:
+            args += ["--shape", shape]
+        procs.append((arch, shape, subprocess.Popen(
+            args, cwd=ROOT, env=launcher_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def dryrun_cells(procs, t0: float) -> list:
+    """Wait for ``dryrun_start``'s children (started at ``t0``); one line
+    per cell with its record's memory, roofline and bottleneck.  A child
+    that fails or runs past ``DRYRUN_TIMEOUT`` fails the phase; every
+    child is stopped before this returns."""
+    out = ROOT / "build" / "dryrun"
+    try:
+        for arch, shape, p in procs:
+            left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                so, se = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                fail(f"dry run {arch} {shape}: past {DRYRUN_TIMEOUT} s")
+            if p.returncode != 0:
+                fail(f"dry run {arch} {shape}: rc {p.returncode}: "
+                     f"{(se or so).strip().splitlines()[-1:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for arch, shape, _ in procs:
+        tag = f"{arch}__{shape}" if shape else "hiperfact-closure"
+        rec = json.loads((out / "single" / f"{tag}.json").read_text())
+        det = json.loads((out / "single" / "detail" / f"{tag}.json")
+                         .read_text())
+        keys = {"arch", "shape", "kind", "params", "active_params", "mesh",
+                "lower_s", "compile_s", "memory", "cost_analysis",
+                "hlo_bytes", "hlo", "roofline", "bottleneck"}
+        if set(rec) != keys or rec["mesh"]["devices"] != 256:
+            fail(f"dry run {tag}: record keys {sorted(rec)}, mesh "
+                 f"{rec['mesh']}")
+        row = {"phase": "dryrun", "cell": tag, "mesh": rec["mesh"]["shape"],
+               "trace_s": rec["lower_s"], "build_s": rec["compile_s"],
+               "ops": rec["hlo_bytes"], "memory": rec["memory"],
+               "peak_gib": rec["memory"]["peak_bytes_per_device"] / 2**30,
+               "roofline": rec["roofline"], "bottleneck": rec["bottleneck"],
+               "collectives": rec["hlo"]["collectives"],
+               "outside": det["outside"],
+               **({"cache_len": det["cache_len"]} if "cache_len" in det
+                  else {})}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def dryrun_card_check(torch, seed: int) -> dict:
+    """The dry run held against the card: yi-6b whole in the 16-bit
+    store, the LM phase's B 2 x 2048 prefill, traced on ``meta:0`` and
+    run on ``cuda:0`` under the same recorder.  Gates: the ops by aten
+    name and the products identical, the kernel records equal to
+    ``kernels.LAUNCHES``' deltas, the argument bytes equal to the bytes
+    the card holds for weights and tokens, the predicted new allocations
+    within ``DRYRUN_PEAK_BAND`` of ``max_memory_allocated``'s increment,
+    and the measured prefill at or above the roofline bound."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.fake import ShapeMode
+    from repro_torch.launch.hlo_analysis import Recorder, analyze_trace
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import (abstract_params, store_spec,
+                                           tree_leaves, tree_map)
+
+    cfg = get_config("yi-6b")
+    B, S = LM_BATCH, 2048
+    max_len = S + LM_STEPS
+    meta0, cuda0 = torch.device("meta", 0), torch.device("cuda", 0)
+    # the trace on meta:0
+    fake_model = build_model(cfg, device=meta0)
+    spec = store_spec(fake_model.spec(), cfg.dtype)
+    with ShapeMode():
+        fake_params = tree_map(lambda x: x.to(meta0), abstract_params(spec))
+        fake_toks = torch.empty((B, S), dtype=torch.int32, device=meta0)
+        fake, mem, trace_s = D.trace_cell(
+            lambda p, t: fake_model.prefill_fn(p, t, max_len),
+            (fake_params, fake_toks), [meta0])
+    del fake_params, fake_toks
+    pred = analyze_trace(fake, D.LINK_BW)
+    mem = mem[meta0]
+    # the run on cuda:0, under the same recorder
+    model = build_model(cfg)
+    params = init_params(model.spec(), seed, store=cfg.dtype)
+    toks = torch.tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (B, S)).astype(np.int32), device="cuda")
+    held = sum(x.nbytes for x in tree_leaves(params)) + toks.nbytes
+    times = []
+    for _ in range(4):   # a warm-up, then three timed runs
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model.prefill_fn(params, toks, max_len)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        del out
+    prefill_s = statistics.median(times[1:])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_counts()
+    real = Recorder(devices=[cuda0], span=D.link_spans([cuda0]))
+    t0 = time.perf_counter()
+    with real:
+        out = model.prefill_fn(params, toks, max_len)
+    torch.cuda.synchronize()
+    recorded_s = time.perf_counter() - t0
+    increment = torch.cuda.max_memory_allocated() - before
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    del out
+    st_f, st_r = fake.stats[meta0], real.stats[cuda0]
+    ops_f = {k: v for k, v in st_f.ops.items() if v}
+    ops_r = {k: v for k, v in st_r.ops.items() if v}
+    predicted = mem["peak_bytes_per_device"] - mem["argument_bytes"]
+    compute_s = pred["flops_per_device"] / D.PEAK_FLOPS
+    memory_s = pred["mem_bytes_per_device"] / D.HBM_BW
+    bound_s = max(compute_s, memory_s)
+    row = {"phase": "dryrun_card", "arch": "yi-6b", "store": cfg.dtype,
+           "batch": B, "prompt": S, "max_len": max_len,
+           "trace_s": trace_s, "ops": sum(ops_f.values()),
+           "ops_equal": ops_f == ops_r,
+           "ops_only_traced": {k: v - ops_r.get(k, 0) for k, v in
+                               ops_f.items() if v != ops_r.get(k, 0)},
+           "ops_only_card": {k: v - ops_f.get(k, 0) for k, v in
+                             ops_r.items() if v != ops_f.get(k, 0)},
+           "outside": [dict(fake.outside), {str(k): v for k, v in
+                                            real.outside.items()}],
+           "product_flops": [st_f.product_flops, st_r.product_flops],
+           "kernel_records": [dict(st_f.kernels), dict(st_r.kernels)],
+           "launches": launches,
+           "argument_bytes": mem["argument_bytes"], "card_bytes": held,
+           "predicted_new_bytes": predicted, "measured_increment": increment,
+           "peak_ratio": increment / predicted if predicted else None,
+           "peak_band": list(DRYRUN_PEAK_BAND),
+           "flops": pred["flops_per_device"],
+           "mem_bytes": pred["mem_bytes_per_device"],
+           "compute_s": compute_s, "memory_s": memory_s, "bound_s": bound_s,
+           "prefill_s": prefill_s, "prefill_s_runs": times[1:],
+           "prefill_over_bound": prefill_s / bound_s,
+           "recorded_prefill_s": recorded_s}
+    print(json.dumps(row), flush=True)
+    if not row["ops_equal"]:
+        fail(f"dry run vs card: ops differ {row['ops_only_traced']} / "
+             f"{row['ops_only_card']}")
+    if fake.outside or real.outside:
+        fail(f"dry run vs card: ops off the device {row['outside']}")
+    if st_f.product_flops != st_r.product_flops or \
+            st_f.products != st_r.products:
+        fail(f"dry run vs card: product FLOPs {row['product_flops']}")
+    if dict(st_r.kernels) != launches or dict(st_f.kernels) != launches \
+            or not launches:
+        fail(f"dry run vs card: kernel records {row['kernel_records']}, "
+             f"launches {launches}")
+    if mem["argument_bytes"] != held:
+        fail(f"dry run vs card: argument bytes {mem['argument_bytes']} vs "
+             f"{held} on the card")
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo * predicted <= increment <= hi * predicted:
+        fail(f"dry run vs card: predicted {predicted} new bytes, the card "
+             f"allocated {increment} more")
+    if prefill_s < bound_s:
+        fail(f"dry run vs card: prefill {prefill_s} s below the roofline "
+             f"bound {bound_s} s")
+    del params, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_phase(torch, seed: int) -> None:
+    """Phase 9 (module docstring): the production cells start in CPU
+    children, the card check runs meanwhile, then the cells are read."""
+    t0 = time.perf_counter()
+    procs = dryrun_start()
+    try:
+        card = dryrun_card_check(torch, seed)
+    except BaseException:
+        for _, _, p in procs:
+            p.kill()
+            p.wait()
+        raise
+    t1 = time.perf_counter()
+    cells = dryrun_cells(procs, t0)
+    print(json.dumps({"phase": "dryrun_all",
+                      "seconds": time.perf_counter() - t0,
+                      "card_check_s": t1 - t0,
+                      "cells": [c["cell"] for c in cells],
+                      "prefill_over_bound": card["prefill_over_bound"]}),
+          flush=True)
+
+
 KERNELS = [
     {"name": "bitonic_sort", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/bitonic_sort.cu",
@@ -4051,6 +4294,7 @@ def main() -> int:
     for route, n in sharding_phase(torch, args.seed).items():
         lm["flash_attention"]["routes"][route] += n
         launches["flash_attention"] += n
+    dryrun_phase(torch, args.seed)
 
     line = []
     for k in KERNELS:

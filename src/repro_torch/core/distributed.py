@@ -40,6 +40,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch import hlo_analysis as _ha
+
 SENTINEL = int(np.iinfo(np.int64).max)
 _M32 = 0xFFFFFFFF
 
@@ -227,17 +229,28 @@ def _exchange(bufs: Sequence[torch.Tensor], devices: Sequence[torch.device],
     """All-to-all of per-source ``[n_dev * slot_cap]`` send buffers: the
     received rows of shard ``d`` are slot ``d`` of every source, in
     source order, on ``devices[d]`` (``lax.all_to_all`` with
-    ``tiled=True``)."""
-    return [torch.cat([b[d * slot_cap:(d + 1) * slot_cap].to(dev)
-                       for b in bufs])
-            for d, dev in enumerate(devices)]
+    ``tiled=True``); announced to an active recorder as ``all-to-all``."""
+    def run():
+        return [torch.cat([b[d * slot_cap:(d + 1) * slot_cap].to(dev)
+                           for b in bufs])
+                for d, dev in enumerate(devices)]
+    if _ha.ACTIVE is None:
+        return run()
+    return _ha.ACTIVE.collective("all-to-all", devices, run,
+                                 sources=[b.device for b in bufs])
 
 
 def _psum(xs: Sequence[torch.Tensor], devices: Sequence[torch.device]
           ) -> list[torch.Tensor]:
-    """``lax.psum``: the sum over the shards, on every shard's device."""
-    total = sum(x.to(devices[0]) for x in xs)
-    return [total.to(dev) for dev in devices]
+    """``lax.psum``: the sum over the shards, on every shard's device;
+    announced to an active recorder as ``all-reduce``."""
+    def run():
+        total = sum(x.to(devices[0]) for x in xs)
+        return [total.to(dev) for dev in devices]
+    if _ha.ACTIVE is None:
+        return run()
+    return _ha.ACTIVE.collective("all-reduce", devices, run,
+                                 sources=[x.device for x in xs])
 
 
 def closure_step(state: Sequence[dict], cfg: ClosureConfig,

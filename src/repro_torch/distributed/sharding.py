@@ -41,11 +41,14 @@ sums the gradients of a master's copies into it.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.launch import hlo_analysis as _ha
 
 # logical axis -> mesh axis group (tuples = composite FSDP axis)
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -318,6 +321,21 @@ class NamedSharding:
                                          device=dev).copy_(x[region])
         return ShardedTensor(self, x.shape, masters)
 
+    def layout(self, shape, fetch) -> "ShardedTensor":
+        """A tensor of ``shape`` laid out from its blocks:
+        ``fetch(device, ranges)`` gives the master block of each grid
+        index on the first device that holds it, ``ranges`` one (lo, hi)
+        per dim."""
+        grid = self.grid(len(shape))
+        bs = self.block_shape(shape)
+        masters: list = [None] * math.prod(grid)
+        for _, dev, k in self._holders(len(shape)):
+            if masters[k] is None:
+                g = np.unravel_index(k, grid) if grid else ()
+                masters[k] = fetch(dev, [(int(i) * b, (int(i) + 1) * b)
+                                         for i, b in zip(g, bs)])
+        return ShardedTensor(self, shape, masters)
+
     def shard(self, x: torch.Tensor) -> list:
         """The per-device blocks of ``x``, in mesh order, each on its
         device; copies of one block on one physical device are one
@@ -392,27 +410,55 @@ class ShardedTensor(list):
     def gather(self, device) -> torch.Tensor:
         return self.piece(device, tuple((0, n) for n in self.shape))
 
+    def rows(self, lo: int, hi: int) -> "ShardedTensor":
+        """Rows ``lo:hi`` of the global tensor under the same layout, each
+        block assembled on its master's device (``piece``)."""
+        return self.sharding.layout(
+            (hi - lo, *self.shape[1:]),
+            lambda dev, r: self.piece(dev, [(lo + r[0][0], lo + r[0][1]),
+                                            *r[1:]]))
+
     def piece(self, device, ranges) -> torch.Tensor:
         """``x[lo0:hi0, lo1:hi1, ...]`` of the global tensor on
         ``device``, ``ranges`` one ``(lo, hi)`` per leading dim (the rest
-        whole), assembled from the masters it meets; differentiable."""
+        whole), assembled from the masters it meets (a master's whole
+        block as it is, a part of one as a view); differentiable."""
         ranges = list(ranges) + [(0, n) for n in self.shape[len(ranges):]]
         grid = self.sharding.grid(self.ndim)
         bs = self.sharding.block_shape(self.shape)
-        per_dim = []
-        for (lo, hi), b in zip(ranges, bs):
-            per_dim.append([(i, slice(max(lo, i * b) - i * b,
-                                      min(hi, (i + 1) * b) - i * b))
-                            for i in range(lo // b, (hi - 1) // b + 1)])
+        per_dim = [[(i, max(lo, i * b) - i * b, min(hi, (i + 1) * b) - i * b)
+                    for i in range(lo // b, (hi - 1) // b + 1)]
+                   for (lo, hi), b in zip(ranges, bs)]
+        strides = [math.prod(grid[d + 1:]) for d in range(self.ndim)]
 
-        def build(d, idx, sl):
+        def block(parts):
+            m = self[sum(i * st for (i, _, _), st in zip(parts, strides))]
+            for d, (_, a, z) in enumerate(parts):
+                if a or z != bs[d]:
+                    m = m.narrow(d, a, z - a)
+            return m
+
+        def build(d, parts):
             if d == self.ndim:
-                k = int(np.ravel_multi_index(idx, grid)) if grid else 0
-                return self[k][tuple(sl)].to(device)
-            parts = [build(d + 1, idx + (i,), sl + [s])
-                     for i, s in per_dim[d]]
-            return parts[0] if len(parts) == 1 else torch.cat(parts, d)
-        return build(0, (), [])
+                return block(parts).to(device)
+            xs = [build(d + 1, parts + [p]) for p in per_dim[d]]
+            return xs[0] if len(xs) == 1 else torch.cat(xs, d)
+        if _ha.ACTIVE is None:
+            return build(0, [])
+        device = torch.device(device)
+        remote, sources = 0, []
+        for parts in itertools.product(*per_dim):
+            m = self[sum(i * st for (i, _, _), st in zip(parts, strides))]
+            if m.device != device:
+                remote += math.prod(z - a for _, a, z in parts) \
+                    * m.element_size()
+                sources.append(m.device)
+        if not remote:
+            return build(0, [])
+        # announced as an all-gather of the bytes other devices hold
+        out = _ha.ACTIVE.quiet(lambda: build(0, []))
+        _ha.ACTIVE.fetch("all-gather", device, sources, remote)
+        return out
 
 
 def is_sharded(x) -> bool:

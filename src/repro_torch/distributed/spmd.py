@@ -10,11 +10,21 @@ differentiable, so a backward pass runs the transposed collective
 (``psum``'s gradient is a ``psum``, ``all_to_all``'s an
 ``all_to_all``).  Devices may repeat: a result is computed once per
 physical device and the repeats share it.
+
+Under an active ``launch.hlo_analysis.Recorder`` each function announces
+itself (``psum``/``pmax`` as ``all-reduce``, ``all_gather`` as
+``all-gather``, ``all_to_all`` as ``all-to-all``, ``ppermute`` as
+``collective-permute``) with its group and result bytes a device; its
+own copies and sums are then not counted as ops.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.launch import hlo_analysis as _ha
 
 
 def _devices(xs, devices):
@@ -31,6 +41,29 @@ def _per_device(fn, devices):
     return out
 
 
+def _announced(kind: str):
+    """Record the wrapped collective under an active recorder."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(xs, *args, **kwargs):
+            if _ha.ACTIVE is None:
+                return fn(xs, *args, **kwargs)
+            devices = kwargs.get("devices")
+            if devices is None and len(args) == fn.__code__.co_argcount - 1:
+                devices = args[-1]
+            group = _devices(xs, devices)
+            receivers = None
+            if kind == "collective-permute":
+                perm = args[0] if args else kwargs["perm"]
+                receivers = [d for s, d in perm if group[s] != group[d]]
+            return _ha.ACTIVE.collective(
+                kind, group, lambda: fn(xs, *args, **kwargs), receivers,
+                [x.device for x in xs])
+        return run
+    return wrap
+
+
+@_announced("all-reduce")
 def psum(xs, devices=None) -> list:
     """Sum over the axis on every device, in the axis's order (so every
     device holds the same bits)."""
@@ -42,6 +75,7 @@ def psum(xs, devices=None) -> list:
     return _per_device(total, _devices(xs, devices))
 
 
+@_announced("all-reduce")
 def pmax(xs, devices=None) -> list:
     """Elementwise maximum over the axis on every device."""
     def top(d):
@@ -52,6 +86,7 @@ def pmax(xs, devices=None) -> list:
     return _per_device(top, _devices(xs, devices))
 
 
+@_announced("all-gather")
 def all_gather(xs, dim: int = 0, devices=None) -> list:
     """Every device gets the axis's values concatenated along ``dim``
     (the reference's ``all_gather(..., tiled=True)``)."""
@@ -59,6 +94,7 @@ def all_gather(xs, dim: int = 0, devices=None) -> list:
                        _devices(xs, devices))
 
 
+@_announced("collective-permute")
 def ppermute(xs, perm, devices=None) -> list:
     """``perm``: (source, destination) index pairs; a destination no pair
     names receives zeros."""
@@ -68,6 +104,7 @@ def ppermute(xs, perm, devices=None) -> list:
             else torch.zeros_like(xs[i]) for i in range(len(xs))]
 
 
+@_announced("all-to-all")
 def all_to_all(xs, split_dim: int = 0, concat_dim: int = 0,
                devices=None) -> list:
     """Device ``i`` splits its value into ``n`` equal chunks along

@@ -18,7 +18,17 @@ with a pad sentinel (``join_host_redo``).  ``SORT_SIZES`` counts the
 sort kernels' launches by log2 of the padded length, ``SEARCH_SIZES``
 those of ``probe_sorted`` by (log2 n, log2 m) and of
 ``unique_mask_sorted`` by log2 n, each rounded up.
+
+A fake tensor (``launch.fake.is_fake``: the dry run's ``ShapeTensor``s,
+or torch's ``FakeTensor``) takes a wrapper's fake path: the same checks
+and output allocations as a launch, and no kernel; it computes nothing
+and counts no launch.  Both a launch and a fake path announce the kernel
+to an active ``launch.hlo_analysis.Recorder`` (``launched``), charged
+the work its bound in ``PERF.md`` is computed from.
 """
+
+from repro_torch.launch import hlo_analysis as _ha
+from repro_torch.launch.fake import is_fake  # noqa: F401  (the wrappers')
 
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
             "merge_ranks": 0, "unique_mask_sorted": 0,
@@ -44,6 +54,19 @@ def count_search_size(name: str, *lengths: int) -> None:
     sizes = SEARCH_SIZES[name]
     key = tuple(max(n - 1, 0).bit_length() for n in lengths)
     sizes[key] = sizes.get(key, 0) + 1
+
+
+def launched(names, device, work, real: bool = True) -> None:
+    """One call of a kernel: ``names`` (its ``LAUNCHES`` keys, the first
+    its own) counted when ``real``, and announced to an active recorder
+    with ``work()`` -> (operations, bytes)."""
+    if real:
+        for n in names:
+            LAUNCHES[n] += 1
+    rec = _ha.ACTIVE
+    if rec is not None:
+        ops, nbytes = work()
+        rec.kernel(names, device, ops, nbytes)
 
 
 def reset_counts() -> None:

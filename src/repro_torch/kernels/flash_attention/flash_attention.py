@@ -34,6 +34,7 @@ sees a key.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -119,7 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row 0.  A CPU tensor runs the plain version; a CUDA tensor launches
     the kernel ``_route`` names or raises — also when it requires grad,
     since the kernel has no backward."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not kernels.is_fake(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      offset=offset)
     return launch_route(_route(q.dtype, q.shape[-1], q.shape[2],
@@ -133,7 +134,8 @@ def launch_route(route: str, q: torch.Tensor, k: torch.Tensor,
     """Launch one route's kernel on CUDA tensors, or raise.
     ``flash_attention`` passes the route ``_route`` names; a caller that
     times the CUDA-core kernel on 16-bit inputs names ``"simt"``."""
-    if q.device.type != "cuda":
+    fake = kernels.is_fake(q)
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -160,19 +162,82 @@ def launch_route(route: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"flash_attention (wgmma): head_dim {hd} (one "
                              f"of {WGMMA_HEAD_DIMS}) and Skv {Skv} (>= 1) "
                              "expected")
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
+        if not fake and any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention (wgmma): TMA needs q, k and v "
                              "16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    off = Skv - Sq if offset is None else int(offset)
+    names = ("flash_attention", "flash_attention_wgmma") \
+        if route == "wgmma" else ("flash_attention",)
+
+    def work():
+        return attention_work(route, B, Sq, Skv, Hq, Hkv, hd, causal,
+                              window, off, q.element_size())
+    if fake:
+        kernels.launched(names, q.device, work, real=False)
+        return out
     lib = _build.library(lib_name)
     _build.check(getattr(lib, entries[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, Hq, Hkv, hd, int(causal), int(window),
-        Skv - Sq if offset is None else int(offset),
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
-    kernels.LAUNCHES["flash_attention"] += 1
-    if route == "wgmma":
-        kernels.LAUNCHES["flash_attention_wgmma"] += 1
+        off, torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention")
+    kernels.launched(names, q.device, work)
     return out
+
+
+# tiles of the two kernels (csrc/flash_attention_tc.cu, flash_attention.cu)
+WGMMA_BM, WGMMA_WG_ROWS = 128, 64     # query rows a block, a warpgroup
+SIMT_ROWS, SIMT_BK = 64, 32           # rows a block (G heads x 64/G), keys
+
+
+@functools.lru_cache(maxsize=4096)
+def visited_pairs(route: str, Sq: int, Skv: int, G: int, hd: int,
+                  causal: bool, window: int, offset: int) -> int:
+    """(query row, key) pairs one kv head's group of ``G`` query heads
+    computes on ``route``: whole tiles, as the kernel visits them.  The
+    ``wgmma`` kernel loads the kv tiles of a 128-row block's band (128
+    keys, 64 at hd 256) and each 64-row warpgroup skips a tile none of its
+    rows sees; the ``simt`` kernel walks 32-key tiles over the band of a
+    block of ``64 / G`` positions times the ``G`` heads."""
+    def band(p_first, p_last):
+        hi = min(Skv, p_last + 1) if causal else Skv
+        lo = max(0, p_first - (window - 1)) if window > 0 else 0
+        return lo, hi
+    total = 0
+    if route == "wgmma":
+        bn = 64 if hd > 128 else 128
+        for q0 in range(0, Sq, WGMMA_BM):
+            lo, hi = band(q0 + offset, min(q0 + WGMMA_BM, Sq) - 1 + offset)
+            if hi <= lo:
+                continue
+            t0, t1 = lo // bn, (hi - 1) // bn
+            for w0 in range(q0, min(q0 + WGMMA_BM, Sq), WGMMA_WG_ROWS):
+                wlo, whi = band(w0 + offset,
+                                min(w0 + WGMMA_WG_ROWS, Sq) - 1 + offset)
+                if whi <= wlo:
+                    continue
+                a, b = max(t0, wlo // bn), min(t1, (whi - 1) // bn)
+                total += max(0, b - a + 1) * WGMMA_WG_ROWS * bn
+        return total * G
+    bq = SIMT_ROWS // G
+    for q0 in range(0, Sq, bq):
+        lo, hi = band(q0 + offset, min(q0 + bq, Sq) - 1 + offset)
+        if hi > lo:
+            total += -(-(hi - (lo // SIMT_BK) * SIMT_BK) // SIMT_BK) \
+                * SIMT_ROWS * SIMT_BK
+    return total
+
+
+def attention_work(route: str, B: int, Sq: int, Skv: int, Hq: int,
+                   Hkv: int, hd: int, causal: bool, window: int,
+                   offset: int, itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of one launch: the two products (QK^T, PV) over
+    the visited tiles, 2 per multiply-add; q, k and v read once and the
+    output written once."""
+    pairs = visited_pairs(route, Sq, Skv, Hq // Hkv, hd, causal, window,
+                          offset)
+    return (4 * hd * pairs * B * Hkv,
+            itemsize * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd))

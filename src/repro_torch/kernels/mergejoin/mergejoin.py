@@ -166,9 +166,12 @@ def probe_sorted_plain(l_keys: torch.Tensor, r_sorted: torch.Tensor
 def probe_sorted(l_keys: torch.Tensor, r_sorted: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi) int32 run bounds in ``r_sorted`` for every left key."""
-    if l_keys.device.type == "cpu" and r_sorted.device.type == "cpu":
+    fake = kernels.is_fake(l_keys) or kernels.is_fake(r_sorted)
+    if l_keys.device.type == "cpu" and r_sorted.device.type == "cpu" \
+            and not fake:
         return probe_sorted_plain(l_keys, r_sorted)
-    if l_keys.device.type != "cuda" or r_sorted.device != l_keys.device:
+    if (l_keys.device.type != "cuda" and not fake) \
+            or r_sorted.device != l_keys.device:
         raise ValueError("probe_sorted: both sides must share one CUDA "
                          f"device, got {l_keys.device} and {r_sorted.device}")
     for name, t in (("left", l_keys), ("right", r_sorted)):
@@ -190,12 +193,20 @@ def probe_sorted(l_keys: torch.Tensor, r_sorted: torch.Tensor
     s, table = probe_plan(m)
     tree = torch.empty(1 << max(table - 1, 0).bit_length() if s else 0,
                        dtype=torch.int64, device=l_keys.device)
+
+    def work():
+        # bytes: both sides read once, both bounds written once;
+        # operations: two binary searches per left key
+        return (2 * n * max(1, (m - 1).bit_length()), 8 * n + 8 * m + 8 * n)
+    if fake:
+        kernels.launched(("probe_sorted",), l_keys.device, work, real=False)
+        return lo, hi
     lib = _build.library("probe_sorted")
     _build.check(lib.probe_sorted_i64(
         l_keys.data_ptr(), n, r_sorted.data_ptr(), m, lo.data_ptr(),
         hi.data_ptr(), tree.data_ptr(), tree.shape[0],
         torch.cuda.current_stream(l_keys.device).cuda_stream),
         "probe_sorted")
-    kernels.LAUNCHES["probe_sorted"] += 1
+    kernels.launched(("probe_sorted",), l_keys.device, work)
     kernels.count_search_size("probe_sorted", n, m)
     return lo, hi

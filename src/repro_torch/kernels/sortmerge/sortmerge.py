@@ -220,27 +220,44 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes) -> None:
         raise ValueError(f"{name}: expects a contiguous 1-D tensor")
 
 
+def _launched(name: str, xp: torch.Tensor, lane_bytes: int,
+              real: bool = True) -> None:
+    """A sort of the padded ``xp``: operations, the network's
+    compare-exchanges (``n/2`` in each of its ``lg(lg+1)/2`` passes);
+    bytes, each lane (``lane_bytes``, keys and payload) read and written
+    once."""
+    def work():
+        n = xp.shape[0]
+        lg = max(1, (n - 1).bit_length())
+        return (n // 2 * lg * (lg + 1) // 2, 2 * lane_bytes * n)
+    kernels.launched((name,), xp.device, work, real)
+
+
 def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     """Sort a 1-D int32/int64 tensor ascending.  The CUDA kernel groups the
     network's levels into tiles, warps, registers and fused launches
     (``launch_plan``) and computes the same function as the plain version;
     a tensor it does not take raises, and nothing falls back."""
-    if x.device.type == "cpu":
+    fake = kernels.is_fake(x)
+    if x.device.type == "cpu" and not fake:
         return bitonic_sort_plain(x)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"bitonic_sort: unsupported device {x.device}")
     _check_cuda("bitonic_sort", x, (torch.int64, torch.int32))
     n = x.shape[0]
     if n <= 1:
         return x.clone()
     xp = _pad_pow2(x, torch.iinfo(x.dtype).max)
+    if fake:
+        _launched("bitonic_sort", xp, x.element_size(), real=False)
+        return xp[:n]
     lib = _build.library("bitonic_sort")
     fn = (lib.bitonic_sort_i64 if x.dtype == torch.int64
           else lib.bitonic_sort_i32)
     _build.check(fn(xp.data_ptr(), xp.shape[0],
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "bitonic_sort")
-    kernels.LAUNCHES["bitonic_sort"] += 1
+    _launched("bitonic_sort", xp, x.element_size())
     kernels.count_sort_size("bitonic_sort", xp.shape[0])
     return xp[:n]
 
@@ -251,9 +268,12 @@ def bitonic_sort_kv(keys: torch.Tensor, vals: torch.Tensor
     The CUDA kernel runs the plain version's compare-exchanges in the same
     order, regrouped as ``launch_plan(n, kv=True)`` says, so the payload
     order of tied keys is the plain version's too."""
-    if keys.device.type == "cpu" and vals.device.type == "cpu":
+    fake = kernels.is_fake(keys) or kernels.is_fake(vals)
+    if keys.device.type == "cpu" and vals.device.type == "cpu" \
+            and not fake:
         return bitonic_sort_kv_plain(keys, vals)
-    if keys.device.type != "cuda" or vals.device != keys.device:
+    if (keys.device.type != "cuda" and not fake) \
+            or vals.device != keys.device:
         raise ValueError("bitonic_sort_kv: keys and vals must share one "
                          f"CUDA device, got {keys.device} and {vals.device}")
     _check_cuda("bitonic_sort_kv", keys, (torch.int64,))
@@ -265,12 +285,15 @@ def bitonic_sort_kv(keys: torch.Tensor, vals: torch.Tensor
         return keys.clone(), vals.clone()
     kp = _pad_pow2(keys, torch.iinfo(torch.int64).max)
     vp = _pad_pow2(vals, 0)
+    if fake:
+        _launched("bitonic_sort_kv", kp, 12, real=False)
+        return kp[:n], vp[:n]
     lib = _build.library("bitonic_sort")
     _build.check(lib.bitonic_sort_kv_i64(
         kp.data_ptr(), vp.data_ptr(), kp.shape[0],
         torch.cuda.current_stream(keys.device).cuda_stream),
         "bitonic_sort_kv")
-    kernels.LAUNCHES["bitonic_sort_kv"] += 1
+    _launched("bitonic_sort_kv", kp, 12)
     kernels.count_sort_size("bitonic_sort_kv", kp.shape[0])
     return kp[:n], vp[:n]
 
@@ -282,9 +305,12 @@ def merge_ranks(x: torch.Tensor, other_sorted: torch.Tensor,
     smaller elements, ``True`` counts <=), as int32.  Pad tails are the
     caller's business, as in the reference: they must sort above every
     real key, and the caller bounds the ranks by the run's real length."""
-    if x.device.type == "cpu" and other_sorted.device.type == "cpu":
+    fake = kernels.is_fake(x) or kernels.is_fake(other_sorted)
+    if x.device.type == "cpu" and other_sorted.device.type == "cpu" \
+            and not fake:
         return merge_ranks_plain(x, other_sorted, side_right)
-    if x.device.type != "cuda" or other_sorted.device != x.device:
+    if (x.device.type != "cuda" and not fake) \
+            or other_sorted.device != x.device:
         raise ValueError("merge_ranks: both runs must share one CUDA "
                          f"device, got {x.device} and {other_sorted.device}")
     _check_cuda("merge_ranks", x, (torch.int64,))
@@ -302,10 +328,18 @@ def merge_ranks(x: torch.Tensor, other_sorted: torch.Tensor,
     gather = s and n > 1 << mergejoin.RANK_SMALL_N_LOG2
     tree = torch.empty(1 << max(table - 1, 0).bit_length() if gather else 0,
                        dtype=torch.int64, device=x.device)
+
+    def work():
+        # bytes: both runs read once, the ranks written once; operations:
+        # one binary search of the other run per element
+        return (n * max(1, (m - 1).bit_length()), 12 * n + 8 * m)
+    if fake:
+        kernels.launched(("merge_ranks",), x.device, work, real=False)
+        return ranks
     lib = _build.library("merge_ranks")
     _build.check(lib.merge_ranks_i64(
         x.data_ptr(), n, other_sorted.data_ptr(), m, int(side_right),
         ranks.data_ptr(), tree.data_ptr(), tree.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream), "merge_ranks")
-    kernels.LAUNCHES["merge_ranks"] += 1
+    kernels.launched(("merge_ranks",), x.device, work)
     return ranks

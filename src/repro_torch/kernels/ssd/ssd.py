@@ -127,9 +127,10 @@ def ssd_intra(cum: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
     tensor runs the plain version; a CUDA tensor launches the kernel or
     raises — also when it requires grad, since the kernel has no
     backward."""
-    if cum.device.type == "cpu":
+    fake = kernels.is_fake(cum)
+    if cum.device.type == "cpu" and not fake:
         return ssd_intra_plain(cum, u, B, C)
-    if cum.device.type != "cuda":
+    if cum.device.type != "cuda" and not fake:
         raise ValueError(f"ssd_intra: unsupported device {cum.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (cum, u, B, C)):
@@ -158,11 +159,33 @@ def ssd_intra(cum: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
     if y.numel() == 0:
         return y, st.zero_()
     gram = gram_scratch(b, nc, Q, cum.device)
+
+    def work():
+        return ssd_intra_work(b, nc, Q, nh, hp, N)
+    if fake:
+        kernels.launched(("ssd_intra",), cum.device, work, real=False)
+        return y, st
     lib = _build.library("ssd_intra")
     _build.check(lib.ssd_intra_f32(
         cum.data_ptr(), u.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), st.data_ptr(), b, nc, Q, nh, hp, N, gram.data_ptr(),
         gram.shape[0], torch.cuda.current_stream(cum.device).cuda_stream),
         "ssd_intra")
-    kernels.LAUNCHES["ssd_intra"] += 1
+    kernels.launched(("ssd_intra",), cum.device, work)
     return y, st
+
+
+def ssd_intra_work(b: int, nc: int, Q: int, nh: int, hp: int,
+                   N: int) -> tuple[int, int]:
+    """(operations, bytes) of one launch, as its bound counts them: the
+    gram ``C B^T``'s lower triangle once per (b, chunk), and per head the
+    decay (an exp of a difference, times the gram), ``M u`` over the
+    triangle, the state weights and the state product ``u^T B``, 2 per
+    multiply-add; cum, u, B, C read once, y and the states written once
+    (float32)."""
+    tri = Q * (Q + 1) // 2
+    ops = b * nc * (tri * N * 2 + nh * (tri * 2 + tri * hp * 2 + Q * hp
+                                        + Q * hp * N * 2))
+    nbytes = 4 * (b * nc * Q * nh + 2 * b * nc * Q * nh * hp
+                  + 2 * b * nc * Q * N + b * nc * nh * hp * N)
+    return ops, nbytes

@@ -29,9 +29,10 @@ def unique_mask_sorted_plain(x: torch.Tensor) -> torch.Tensor:
 
 def unique_mask_sorted(x: torch.Tensor) -> torch.Tensor:
     """Boolean first-of-run mask for a sorted 1-D int64 tensor."""
-    if x.device.type == "cpu":
+    fake = kernels.is_fake(x)
+    if x.device.type == "cpu" and not fake:
         return unique_mask_sorted_plain(x)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"unique_mask_sorted: unsupported device {x.device}")
     if x.dtype != torch.int64:
         raise TypeError(f"unique_mask_sorted: dtype {x.dtype}, expected "
@@ -43,11 +44,17 @@ def unique_mask_sorted(x: torch.Tensor) -> torch.Tensor:
     mask = torch.empty(n, dtype=torch.bool, device=x.device)
     if n == 0:
         return mask
+
+    def work():   # the keys read once, the mask written once; a compare
+        return (n, 9 * n)         # per lane
+    if fake:
+        kernels.launched(("unique_mask_sorted",), x.device, work, real=False)
+        return mask
     lib = _build.library("unique_mask")
     _build.check(lib.unique_mask_i64(
         x.data_ptr(), n, mask.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream),
         "unique_mask_sorted")
-    kernels.LAUNCHES["unique_mask_sorted"] += 1
+    kernels.launched(("unique_mask_sorted",), x.device, work)
     kernels.count_search_size("unique_mask_sorted", n)
     return mask

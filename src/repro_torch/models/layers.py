@@ -142,7 +142,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding. x: [..., S, H, hd]; positions: [..., S] (int)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.pow(torch.tensor(theta, dtype=F32, device=x.device),
+    # the base as a device op (``full``): no host tensor copied over
+    freqs = torch.pow(torch.full((), theta, dtype=F32, device=x.device),
                       -torch.arange(half, dtype=F32, device=x.device) / half)
     ang = positions.to(F32)[..., None] * freqs             # [..., S, half]
     cos = torch.cos(ang)[..., None, :]                     # [..., S, 1, half]

@@ -62,10 +62,13 @@ def init_opt_state(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
+    """sqrt of the sum of every leaf's squares, in float32, on the first
+    leaf's device (the leaves of a mesh's blocks may lie on several)."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
     return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(x, dtype=torch.float32)
-         for x in tree_leaves(tree)]))
+        [torch.linalg.vector_norm(x, dtype=torch.float32).to(dev)
+         for x in leaves]))
 
 
 def leaf_paths(tree, path: tuple = ()) -> list:
@@ -104,16 +107,21 @@ def adamw_update(params, grads, opt, cfg: OptimizerConfig):
     b1, b2 = cfg.betas
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
+    here = (scale, bc1, bc2, lr)
+    by_device = {}
     for path, p, g, m, v in zip(leaf_paths(params), tree_leaves(params),
                                 tree_leaves(grads), tree_leaves(opt["m"]),
                                 tree_leaves(opt["v"])):
-        g = g.float() * scale
+        if p.device not in by_device:   # blocks of a mesh on several
+            by_device[p.device] = tuple(x.to(p.device) for x in here)
+        s_, bc1_, bc2_, lr_ = by_device[p.device]
+        g = g.float() * s_
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        delta = torch.div(m, bc1, out=g)       # g's storage, spent
-        delta.div_((v / bc2).sqrt_().add_(cfg.eps))
+        delta = torch.div(m, bc1_, out=g)       # g's storage, spent
+        delta.div_((v / bc2_).sqrt_().add_(cfg.eps))
         if _decay_mask(path):
             delta.add_(p.float(), alpha=cfg.weight_decay)
-        p.sub_(delta.mul_(lr).to(p.dtype))
+        p.sub_(delta.mul_(lr_).to(p.dtype))
     new_opt = {"m": opt["m"], "v": opt["v"], "step": step}
     return params, new_opt, {"lr": lr, "grad_norm": gnorm}

@@ -66,6 +66,18 @@ def _split_micro(batch: dict, n: int) -> dict:
                     batch)
 
 
+def _microbatch(batch: dict, i: int, n: int) -> dict:
+    """Microbatch ``i`` of ``n``: rows i * B/n .. (i+1) * B/n - 1 of each
+    leaf [B, ...]; a ``ShardedTensor`` leaf keeps its layout, each block
+    assembled where it lives (``ShardedTensor.rows``)."""
+    def one(x):
+        if is_sharded(x):
+            b = x.shape[0] // n
+            return x.rows(i * b, (i + 1) * b)
+        return _split_micro(x, n)[i]
+    return tree_map(one, batch, is_leaf=is_sharded)
+
+
 def loss_and_grads(model, params, batch):
     """(loss, metrics, grads): ``model.loss_fn`` and its gradient with
     respect to every leaf of ``params`` (a tree of the same layout; a
@@ -87,13 +99,12 @@ def build_train_step(model, opt_cfg: OptimizerConfig,
         if accum == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:
-            micro = _split_micro(batch, accum)
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             for i in range(accum):
-                mb = tree_map(lambda x: x[i], micro)
+                mb = _microbatch(batch, i, accum)
                 l, _, g = loss_and_grads(model, params, mb)
                 for a, gi in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(gi.float())
