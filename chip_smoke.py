@@ -91,10 +91,13 @@ Phases, each fatal on failure:
    ``ssd_intra`` (mamba2) once per attention or SSD layer each (for
    whisper once per encoder layer and once per decoder layer's cross-
    attention; its decoder's self-attention is short enough to
-   materialize); moonshot's line adds the pairs each forward dropped.
-   Then a profiled prefill (device busy share, attention's device time
-   and share, and for recurrentgemma one layer's RG-LRU scan timed apart
-   with its share of the prefill) and a profiled 4-step decode window;
+   materialize), and recurrentgemma's forwards ``linear_scan`` once per
+   RG-LRU layer each (26); moonshot's line adds the pairs each forward
+   dropped.  Then a profiled prefill (device busy share, attention's
+   device time and share, and for recurrentgemma the scan kernel's
+   device time, one layer's RG-LRU scan timed apart beside the plain
+   passes, and its share of the prefill) and a profiled 4-step decode
+   window;
 5. training phase (``TRAIN_MODELS``), one config at a time after the LM
    phase, the card freed between them: at the configs' own widths and
    with random float32-store weights from ``--seed`` (conv taps as
@@ -152,7 +155,11 @@ Phases, each fatal on failure:
    prefill (2 × 2048 positions, 32/32 heads, hd 96) on the tensor-core
    route's hd-96 tiles, bf16 and fp16 (and a ragged non-causal case at
    its head layout in bf16 on that route, in float32 on the CUDA-core
-   one), each beside SDPA;
+   one), each beside SDPA; the RG-LRU scan at recurrentgemma-9b's prefill
+   shape ([2, 4096, 4096] float32, decays from U(0.9, 1)), without and
+   with ``h0``, against the plain passes and against the recurrence
+   stepped in float64 over 64 sampled channels, both within ``SCAN_TOL``
+   of the scale;
 7. trainer phase (``trainer_phase``), after the kernel phase: the fact
    engine's closure as training data, the trainer's checkpoints, crash and
    resume, and the training launcher.  ``FactCorpusSource`` with its own
@@ -261,7 +268,9 @@ Phases, each fatal on failure:
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
    (``bound_old_ms``) beside the TF32 one; attention's row adds the
-   sharding phase's launches on yi's head shards;
+   sharding phase's launches on yi's head shards; ``linear_scan``'s row
+   (not a Pallas kernel: XLA's associative scan in the reference) its
+   time from ``h0`` (``h0_ms``) and the float64 check;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Float32 products run in full float32 (``allow_tf32`` off for matmuls
@@ -1182,7 +1191,77 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
         # the old yardstick: the same work at the float32 peak without
         # tensor cores
         "bound_old_ms": bound_ms(nbytes, ops)[0]}
+    out["linear_scan"] = scan_row(torch, rng, reps)
     return out
+
+
+# the RG-LRU scan's kernel row: recurrentgemma-9b's prefill, B 2 prompts
+# of S 4096 at d 4096; its gate (both checks), 1e-5 of max(1, max|h|):
+# kernel and plain passes sum the same terms in another order in float32
+# (the staged model reads ~4e-7 against float64 at S 4096,
+# tests/test_torch_rglru_scan.py); channels the float64 check steps
+SCAN_SHAPE = (2, 4096, 4096)
+SCAN_TOL = 1e-5
+SCAN_F64_CHANNELS = 64
+
+
+def scan_row(torch, rng, reps: int, shape=SCAN_SHAPE) -> dict:
+    """``linear_scan`` at ``shape``, float32, decays from U(0.9, 1) (the
+    state carries across the prompt), without ``h0`` (the prefill's form)
+    and with one: against the plain passes on the card and against the
+    recurrence stepped in float64 on the host over ``SCAN_F64_CHANNELS``
+    sampled channels of each batch row, each within ``SCAN_TOL`` of
+    max(1, max|h|); timed beside the plain passes.  No single PyTorch call
+    computes a first-order linear recurrence (``library_ms`` None)."""
+    import numpy as np
+
+    from repro_torch.kernels.rglru_scan.scan import (linear_scan,
+                                                     linear_scan_plain)
+
+    B, S, D = shape
+    a = torch.tensor(rng.uniform(0.9, 1.0, shape).astype(np.float32),
+                     device="cuda")
+    b = torch.tensor(rng.randn(*shape).astype(np.float32), device="cuda")
+    h0 = torch.tensor(rng.randn(B, D).astype(np.float32), device="cuda")
+    idx = np.sort(rng.choice(D, min(D, SCAN_F64_CHANNELS), replace=False))
+    a64, b64 = (x[:, :, idx].double().cpu().numpy() for x in (a, b))
+
+    def check(init, what):
+        got = linear_scan(a, b, init)
+        plain = linear_scan_plain(a, b, init)
+        tol = SCAN_TOL * max(1.0, float(plain.abs().max()))
+        err = float_err(torch, got, plain, tol, f"linear_scan ({what})")
+        h = (np.zeros((B, len(idx))) if init is None
+             else init[:, idx].double().cpu().numpy())
+        want = np.empty(a64.shape)
+        for t in range(S):
+            h = a64[:, t] * h + b64[:, t]
+            want[:, t] = h
+        tol64 = SCAN_TOL * max(1.0, float(np.abs(want).max()))
+        err64 = float(np.abs(got[:, :, idx].double().cpu().numpy()
+                             - want).max())
+        if not err64 <= tol64:
+            fail(f"linear_scan ({what}): {err64} from the float64 "
+                 f"recurrence > {tol64}")
+        return {"max_abs_err": err, "tolerance": tol, "f64_max_abs_err":
+                err64, "f64_tolerance": tol64}
+
+    # the row's own error and tolerance are the case without h0 (the
+    # prefill's form); the case with one is its ``h0`` entry
+    row = {"shape": [B, S, D], "dtype": "float32", **check(None, "no h0"),
+           "h0": check(h0, "h0"),
+           "kernel_ms": time_ms(torch, lambda: linear_scan(a, b), reps),
+           "h0_kernel_ms": time_ms(torch, lambda: linear_scan(a, b, h0),
+                                   reps),
+           "plain_ms": time_ms(torch, lambda: linear_scan_plain(a, b), reps),
+           "library_ms": None, "library_call": None,
+           # bytes: a and b read once, h written once (float32);
+           # operations: a multiply and an add an element, at the float32
+           # rate without tensor cores
+           "bound": bound_ms(4 * 3 * B * S * D, 2 * B * S * D)}
+    del a, b, h0
+    torch.cuda.empty_cache()
+    return row
 
 
 def row_sets(engine, queries):
@@ -2233,21 +2312,23 @@ LM_MODELS = [
      2048, False, LM_BATCH),
     ("mamba2-1.3b", "ssd_intra", ("ssd_intra",), 2048, False, LM_BATCH),
     ("recurrentgemma-9b", "flash_attention@hd256",
-     ("flash_attention", "flash_attention_wgmma"), 4096, False, LM_BATCH),
+     ("flash_attention", "flash_attention_wgmma", "linear_scan"), 4096, False,
+     LM_BATCH),
     ("moonshot-v1-16b-a3b", "flash_attention@mha",
      ("flash_attention", "flash_attention_wgmma"), 2048, True, LM_BATCH),
     ("whisper-tiny", "flash_attention@encdec",
      ("flash_attention", "flash_attention_wgmma"), 432, False, 16),
     ("phi-3-vision-4.2b", "flash_attention@hd96",
      ("flash_attention", "flash_attention_wgmma"), 1472, False, LM_BATCH)]
-LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra")
+LM_COUNTS = ("flash_attention", "flash_attention_wgmma", "ssd_intra",
+             "linear_scan")
 # the kernel rows ``lm_kernel_rows`` builds with its ``attention_row``
 ATTENTION_ROWS = ("flash_attention@mha", "flash_attention@encdec",
                   "flash_attention@hd96")
-# the block kinds whose forward launches an LM kernel (RG-LRU blocks
-# launch none: their scan is plain PyTorch, as the reference's is XLA;
-# a MoE block launches attention, and its dispatch is stock torch ops, as
-# the reference's is XLA)
+# the block kinds whose forward launches attention or the SSD kernel (a
+# MoE block launches attention, and its dispatch is stock torch ops, as
+# the reference's is XLA); an RG-LRU block launches the scan kernel
+# (``scan_layers``), where the reference runs XLA's associative scan
 KERNEL_KINDS = ("attn", "local", "ssm", "moe")
 
 
@@ -2260,6 +2341,12 @@ def kernel_layers(cfg) -> int:
     if cfg.family == "encdec":
         return cfg.n_enc_layers + cfg.n_layers
     return sum(k.value in KERNEL_KINDS for k in cfg.block_kinds())
+
+
+def scan_layers(cfg) -> int:
+    """RG-LRU blocks, from the config alone: each forward's sequence form
+    launches ``linear_scan`` once in each."""
+    return sum(k.value == "rglru" for k in cfg.block_kinds())
 
 
 def lm_inputs(torch, cfg, seed: int, batch: int) -> dict:
@@ -2436,15 +2523,19 @@ def lm_phase(torch, seed: int, steps: int, models=LM_MODELS) -> dict:
         if peak_gb >= 80:
             fail(f"{arch}: peak device memory {peak_gb} GB, past one card")
         # two forwards ran (the prefill and the check), each launching
-        # the model's kernel once per kernel layer
-        n = 2 * kernel_layers(cfg)
-        want = {k: (n if k in own else 0) for k in LM_COUNTS}
+        # the model's kernel once per kernel layer, and the scan kernel
+        # once per RG-LRU layer
+        per = {k: (scan_layers(cfg) if k == "linear_scan"
+                   else kernel_layers(cfg)) for k in LM_COUNTS}
+        want = {k: (2 * per[k] if k in own else 0) for k in LM_COUNTS}
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"{arch}: LM kernel launches {got}, expected {want}")
         tc = counts["flash_attention_wgmma"]
         launches[row] = {"launches": counts[own[0]], "routes": {
             "wgmma": tc, "simt": counts["flash_attention"] - tc}}
+        if "linear_scan" in own:
+            launches["linear_scan"] = {"launches": counts["linear_scan"]}
         del logits, first, step, ref
         lm_prefill_profile(torch, arch, model, params, prompts, extra)
         lm_profile(torch, arch, model, params, prompts, extra)
@@ -2643,11 +2734,14 @@ def lm_prefill_profile(torch, arch: str, model, params, prompts,
     """One more prefill of the prompts (and ``extra``) under
     ``torch.profiler``: the device busy share and top kernels, the
     attention kernels' device time (``flash_kernel``/``flash_tc``) and
-    its share of the busy time, and for a model with RG-LRU blocks one
-    layer's linear scan at the prefill's shape timed apart (CUDA events)
-    and its share of the prefill over all such layers."""
+    its share of the busy time, and for a model with RG-LRU blocks the
+    scan kernel's device time in the profile, one layer's linear scan at
+    the prefill's shape timed apart (CUDA events; the serving route, the
+    kernel) beside the plain passes, and its share of the prefill over all
+    such layers."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.rglru_scan.scan import linear_scan_plain
     from repro_torch.models import rglru
 
     seq = prompts.shape[1]
@@ -2678,8 +2772,14 @@ def lm_prefill_profile(torch, arch: str, model, params, prompts,
         a = torch.rand(shape, device="cuda") * 0.1 + 0.9
         b = torch.randn(shape, device="cuda")
         scan_ms = time_ms(torch, lambda: rglru._linear_scan(a, b), 5)
-        line.update({"recurrent_layers": n_rec, "scan_ms": scan_ms,
-                     "scan_share_of_prefill": n_rec * scan_ms / (wall * 1e3)})
+        scan_dev = sum(us for k, (us, _) in per.items()
+                       if "linear_scan" in k) / 1e3
+        line.update({
+            "recurrent_layers": n_rec, "scan_ms": scan_ms,
+            "scan_plain_ms": time_ms(torch, lambda: linear_scan_plain(a, b),
+                                     5),
+            "scan_device_ms": scan_dev if busy else "not measured",
+            "scan_share_of_prefill": n_rec * scan_ms / (wall * 1e3)})
         del a, b
     print(json.dumps(line), flush=True)
 
@@ -2923,6 +3023,7 @@ def refuse_gradient(torch) -> None:
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
+    from repro_torch.kernels.rglru_scan.scan import linear_scan
     from repro_torch.kernels.ssd.ssd import ssd_intra
 
     def req(*shape, dtype=torch.float32):
@@ -2932,7 +3033,8 @@ def refuse_gradient(torch) -> None:
         req(1, 64, 2, 64, dtype=torch.bfloat16) for _ in range(3)]),
         "ssd_intra": (ssd_intra, [cum.requires_grad_(),
                                   req(1, 2, 32, 2, 16), req(1, 2, 32, 16),
-                                  req(1, 2, 32, 16)])}
+                                  req(1, 2, 32, 16)]),
+        "linear_scan": (linear_scan, [req(2, 64, 32), req(2, 64, 32)])}
     for name, (fn, args) in calls.items():
         before = kernels.LAUNCHES[name]
         try:
@@ -4217,6 +4319,11 @@ KERNELS = [
     {"name": "ssd_intra", "route": "cuda",
      "source": "src/repro_torch/kernels/csrc/ssd_intra.cu",
      "replaces": "src/repro/kernels/ssd/ssd.py:53"},
+    # not a Pallas kernel: the reference's RG-LRU scan runs in XLA
+    {"name": "linear_scan", "route": "cuda",
+     "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+     "replaces": "src/repro/models/rglru.py:67 (jax.lax.associative_scan, "
+                 "XLA)"},
 ]
 QUEUED: list = []  # every Pallas kernel of the reference has a port
 
@@ -4322,6 +4429,9 @@ def main() -> int:
         elif k["name"] == "ssd_intra":  # the gram pass, the old yardstick
             extra = {"gram_ms": r["gram_ms"],
                      "bound_old_ms": r["bound_old_ms"]}
+        elif k["name"] == "linear_scan":  # from h0, the float64 check
+            extra = {"h0_ms": r["h0_kernel_ms"], "h0": r["h0"],
+                     "f64_max_abs_err": r["f64_max_abs_err"]}
         line.append({**k, "status": "ported and checked",
                      "launches": launches[k["name"]],
                      "max_abs_err": r["max_abs_err"],

@@ -4,7 +4,9 @@ Each kernel lives in ``csrc/`` (CUDA C++ for ``sm_90a``, built by
 ``_build.py``) with a wrapper module beside the reference package's
 counterpart (``sortmerge/sortmerge.py``, ``mergejoin/mergejoin.py``,
 ``uniquefilter/uniquefilter.py``, ``flash_attention/flash_attention.py``,
-``ssd/ssd.py``).  A wrapper given a CUDA tensor
+``ssd/ssd.py``), and one kernel that replaces an XLA-compiled step of
+the reference rather than a Pallas kernel: the RG-LRU linear scan
+(``rglru_scan/scan.py``).  A wrapper given a CUDA tensor
 launches its kernel or raises; given a CPU tensor it runs the kernel's
 plain PyTorch version.
 
@@ -33,7 +35,7 @@ from repro_torch.launch.fake import is_fake  # noqa: F401  (the wrappers')
 LAUNCHES = {"bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
             "merge_ranks": 0, "unique_mask_sorted": 0,
             "flash_attention": 0, "flash_attention_wgmma": 0,
-            "ssd_intra": 0}
+            "ssd_intra": 0, "linear_scan": 0}
 # the fact engine's kernels; the LM serving path's are the others
 ENGINE_KERNELS = ("bitonic_sort", "bitonic_sort_kv", "probe_sorted",
                   "merge_ranks", "unique_mask_sorted")

@@ -52,6 +52,9 @@ SOURCES = {
         "ssd_intra_f32": "pppppp" + "i" * 6 + "pip",
         "ssd_gram_f32": "pp" + "i" * 4 + "pip",
     }),
+    "linear_scan": ("linear_scan.cu", {
+        "linear_scan_f32": "pppp" + "iii" + "p",
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

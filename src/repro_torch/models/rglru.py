@@ -10,15 +10,18 @@ the Real-Gated LRU::
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
     out = W_o (gelu(gate_branch) * h)
 
-The sequence form runs the linear recurrence as a log-depth scan
-(``_linear_scan``: Hillis-Steele, ceil(log2 S) elementwise passes), where
-the reference runs ``jax.lax.associative_scan`` in XLA; no Pallas kernel
-is involved in either.  The serving scan rewrites one copy of a and b in
-place, which autograd cannot differentiate (each pass bumps the version
-of tensors the previous pass saved); the training route (``train=True``)
-runs the same passes out of place (``_linear_scan_train``).  Decode is
-the single-step recurrence with an O(1) state.  The recurrence runs in
-float32.
+The sequence form's linear recurrence is the reference's
+``jax.lax.associative_scan`` in XLA (not a Pallas kernel).  The serving
+route (``_linear_scan``) runs it through ``kernels/rglru_scan``'s
+``linear_scan``: on a CUDA tensor one hand-written kernel
+(``csrc/linear_scan.cu``) that reads a and b once and writes h once; on a
+CPU tensor its plain version, ceil(log2 S) Hillis-Steele passes in place
+in one copy of a and b, which autograd cannot differentiate (each pass
+bumps the version of tensors the previous pass saved).  The kernel has no
+backward either, so the training route (``train=True``) runs the same
+passes out of place (``_linear_scan_train``) and launches no kernel.
+Decode is the single-step recurrence with an O(1) state.  The recurrence
+runs in float32.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rglru_scan.scan import linear_scan
 from repro_torch.models.layers import dense, dense_spec
 from repro_torch.models.params import LeafSpec, zeros
 
@@ -79,30 +83,16 @@ def _gates(p: dict, u: torch.Tensor):
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor,
                  h0: torch.Tensor | None = None) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1} = ``h0`` or 0).
-
-    Hillis-Steele: after the pass at offset ``off`` each position holds
-    the composition of the (up to) 2*off steps ending at it, so
-    ceil(log2 S) passes of elementwise products finish the scan (12 at
-    S = 4096) — no loop over positions.  Each pass rewrites only the
-    positions from ``off`` on, in place in one copy of ``a`` and ``b``;
-    its right-hand side is formed before the write."""
-    a, b = a.clone(), b.clone()
-    if h0 is not None:
-        b[:, 0] += a[:, 0] * h0
-    S = a.shape[1]
-    off = 1
-    while off < S:
-        b[:, off:] = torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])
-        if 2 * off < S:  # the last pass needs no composed decay
-            a[:, off:] = a[:, off:] * a[:, :-off]
-        off *= 2
-    return b
+    """h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1} = ``h0`` or 0), the
+    serving route: ``linear_scan`` (the kernel on a CUDA tensor, the
+    plain passes on a CPU one).  A returned state ``h[:, -1]`` is a
+    strided view; the kernel takes ``h0`` contiguous."""
+    return linear_scan(a, b, None if h0 is None else h0.contiguous())
 
 
 def _linear_scan_train(a: torch.Tensor, b: torch.Tensor,
                        h0: torch.Tensor | None = None) -> torch.Tensor:
-    """``_linear_scan``'s passes out of place: each pass makes new a and
+    """``linear_scan_plain``'s passes out of place: each pass makes new a and
     b (its first ``off`` positions carried over), so autograd keeps every
     pass's inputs and differentiates them."""
     if h0 is not None:

@@ -771,6 +771,121 @@ def test_cuda_lm_wrappers_reject_bad_input(cuda):
                   torch.zeros(1, 1, 8, 3, device=cuda))
 
 
+def scan_reference(a, b, h0):
+    """The RG-LRU recurrence h_t = a_t h_{t-1} + b_t stepped in float64
+    on the host."""
+    h = np.zeros(a[:, 0].shape) if h0 is None else h0.astype(np.float64)
+    out = np.empty(a.shape)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", [
+    (1, 1, 32), (2, 7, 40), (2, 127, 33), (2, 129, 96), (1, 1000, 64),
+    # recurrentgemma-9b's prefill: 2 prompts of 4096 tokens, d = 4096
+    (2, 4096, 4096)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_linear_scan_equals_plain(cuda, B, S, D, with_h0):
+    """Within 1e-5 of max(1, max|h|) of the plain passes on the card and
+    of the recurrence in float64 (both sum the same terms in another
+    order in float32); decays from U(0.9, 1), so the state carries over
+    the whole sequence."""
+    from repro_torch.kernels.rglru_scan.scan import (linear_scan,
+                                                     linear_scan_plain)
+    r = rng("cscan", B, S, D, with_h0)
+    a = r.uniform(0.9, 1.0, (B, S, D)).astype(np.float32)
+    b = r.randn(B, S, D).astype(np.float32)
+    h0 = r.randn(B, D).astype(np.float32) if with_h0 else None
+    ta, tb = T(a).to(cuda), T(b).to(cuda)
+    th = None if h0 is None else T(h0).to(cuda)
+    before = kernels.LAUNCHES["linear_scan"]
+    got = linear_scan(ta, tb, th)
+    plain = linear_scan_plain(ta, tb, th)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linear_scan"] == before + 1
+    want = scan_reference(a, b, h0)
+    bound = 1e-5 * max(1.0, float(np.abs(want).max()))
+    assert float((got - plain).abs().max()) <= bound
+    assert float(np.abs(got.double().cpu().numpy() - want).max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_linear_scan_rejects_bad_input(cuda):
+    """A gradient (the kernel has no backward), another dtype, a strided
+    input or mismatched shapes raise and launch nothing; under
+    ``torch.no_grad()`` the same inputs launch."""
+    from repro_torch.kernels.rglru_scan.scan import linear_scan
+    a = torch.rand(2, 40, 8, device=cuda)
+    b = torch.randn(2, 40, 8, device=cuda)
+    before = kernels.LAUNCHES["linear_scan"]
+    with pytest.raises(RuntimeError, match="training route"):
+        linear_scan(a.clone().requires_grad_(), b)
+    with pytest.raises(TypeError):
+        linear_scan(a.double(), b.double())
+    with pytest.raises(ValueError):
+        linear_scan(a.transpose(0, 1).contiguous().transpose(0, 1), b)
+    with pytest.raises(ValueError):
+        linear_scan(a, b, torch.zeros(8, 2, device=cuda))
+    with pytest.raises(ValueError):
+        linear_scan(a, b.cpu())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linear_scan"] == before
+    with torch.no_grad():
+        linear_scan(a.clone().requires_grad_(), b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linear_scan"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_recurrentgemma_scan_launches(cuda):
+    """recurrentgemma-9b's smoke config on the card: the prefill and a
+    check forward (``hidden``) launch the scan kernel once per RG-LRU
+    block each, 2 x its RG-LRU layers, and equal the CPU's logits within
+    1e-4 of their scale (float32); a training step (B 2 x 64, past the
+    32-key window) launches no kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.config import BlockKind
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import (OptimizerConfig, build_train_step,
+                                   init_train_state)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                              dtype="float32")
+    n_rec = sum(k == BlockKind.RECURRENT for k in cfg.block_kinds())
+    assert n_rec > 0
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+    p_cpu = init_params(cpu.spec(), 0, device="cpu")
+    r = rng("cscan-rg")
+    for blk in (*p_cpu["blocks"].values(), *p_cpu.get("tail", [])):
+        if "rglru" in blk:  # zero taps at init: the conv would give 0
+            for k in ("conv_w", "conv_b"):
+                blk["rglru"][k] = T((r.randn(*blk["rglru"][k].shape) * 0.5)
+                                    .astype(np.float32))
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = T(r.randint(0, cfg.vocab, (2, 64)).astype(np.int32))
+    kernels.reset_counts()
+    with torch.no_grad():
+        logits, _ = gpu.prefill_fn(p_gpu, toks[:, :40].to(cuda), 48)
+        gpu.hidden(p_gpu, toks[:, :40].to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linear_scan"] == 2 * n_rec
+    want, _ = cpu.prefill_fn(p_cpu, toks[:, :40], 48)
+    assert float((logits.cpu() - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+    kernels.reset_counts()
+    batch = {k: toks.to(cuda) for k in ("tokens", "labels")}
+    step = build_train_step(gpu, OptimizerConfig())
+    _, met = step(init_train_state(p_gpu), batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.as_tensor(float(met["loss"])))
+    assert not any(kernels.counts()["launches"].values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cf", [4.0, 1.0, 0.5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -906,6 +1021,9 @@ def test_cuda_model_equals_cpu(cuda, arch, dtype):
     if cfg.family == "encdec":
         n *= 2  # self- and cross-attention in each decoder layer
     assert kernels.LAUNCHES[name] == n  # one prefill forward
+    # and the hybrid's RG-LRU blocks the scan kernel, once each
+    assert kernels.LAUNCHES["linear_scan"] == sum(
+        k == BlockKind.RECURRENT for k in kinds)
     for got, want in zip(*outs):
         scale = float(want.abs().max())
         bound = 1e-4 * scale if dtype == "float32" else 3e-2 * max(1.0,

@@ -70,6 +70,8 @@ from repro_torch.kernels.sortmerge.sortmerge import (bitonic_sort,
                                                      bitonic_sort_plain,
                                                      merge_ranks,
                                                      merge_ranks_plain)
+from repro_torch.kernels.rglru_scan.scan import (linear_scan,
+                                                 linear_scan_plain)
 from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
 from repro_torch.kernels.uniquefilter.uniquefilter import (
     unique_mask_sorted, unique_mask_sorted_plain)
@@ -531,6 +533,17 @@ KERNELS = {
                               ((1, 2, 16, 8), torch.float32)],
                   ssd_intra_plain, _ssd_work(1, 2, 16, 4, 8, 8),
                   ("ssd_intra",)),
+    "linear_scan": (linear_scan, [((2, 300, 40), torch.float32),
+                                  ((2, 300, 40), torch.float32)],
+                    linear_scan_plain,
+                    (2 * 2 * 300 * 40, 4 * 3 * 2 * 300 * 40),
+                    ("linear_scan",)),
+    "linear_scan-h0": (linear_scan, [((2, 300, 40), torch.float32),
+                                     ((2, 300, 40), torch.float32),
+                                     ((2, 40), torch.float32)],
+                       linear_scan_plain,
+                       (2 * 2 * 300 * 40, 4 * (3 * 2 * 300 * 40 + 2 * 40)),
+                       ("linear_scan",)),
 }
 
 

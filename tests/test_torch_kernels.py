@@ -415,12 +415,14 @@ def test_cpu_tensors_launch_nothing():
     unique_mask_sorted(T(np.arange(5, dtype=np.int64)))
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
+    from repro_torch.kernels.rglru_scan.scan import linear_scan
     from repro_torch.kernels.ssd.ssd import ssd_intra
     q = torch.zeros(1, 5, 2, 8)
     flash_attention(q, q, q)
     ssd_intra(torch.zeros(1, 1, 4, 2), torch.zeros(1, 1, 4, 2, 3),
               torch.zeros(1, 1, 4, 5), torch.zeros(1, 1, 4, 5))
+    linear_scan(torch.rand(1, 5, 3), torch.rand(1, 5, 3), torch.rand(1, 3))
     assert kernels.counts()["launches"] == {
         "bitonic_sort": 0, "bitonic_sort_kv": 0, "probe_sorted": 0,
         "merge_ranks": 0, "unique_mask_sorted": 0, "flash_attention": 0,
-        "flash_attention_wgmma": 0, "ssd_intra": 0}
+        "flash_attention_wgmma": 0, "ssd_intra": 0, "linear_scan": 0}

@@ -220,6 +220,7 @@ def test_wrappers_never_take_the_plain_path_for_cuda():
     nothing and fall back to nothing."""
     from pathlib import Path
     root = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-    for name in ("flash_attention/flash_attention.py", "ssd/ssd.py"):
+    for name in ("flash_attention/flash_attention.py", "ssd/ssd.py",
+                 "rglru_scan/scan.py"):
         src = (root / "kernels" / name).read_text()
         assert "try:" not in src and "except" not in src
