@@ -232,9 +232,30 @@ Phases, each fatal on failure:
    repro_torch.launch.train --arch yi-6b --smoke --mesh 2x4 --devices
    cuda:0`` in a child: 20 steps whose loss falls, then 30 on the same
    checkpoint directory, which must restore step 20 and run 10; without
-   ``--devices`` it must fail naming the flag (one card);
+   ``--devices`` it must fail naming the flag (one card).  (7) the
+   mixers (``shard_mixers``): ``mamba2-1.3b`` (SSD by head shard),
+   ``recurrentgemma-9b`` (RG-LRU by channel shard, local attention by
+   head shard) and ``whisper-tiny`` (attention by head shard; its 6 heads
+   whole on a row's first device on 2x4, 3 a device on a 4x2 mesh) at
+   full width and depth in the 16-bit store, over the LM phase's prompts
+   (B 2 x 2048, B 2 x 4096, 16 x 432 behind 1500 frames): the sharded
+   prefill and 4 decode steps against the single device, fed its greedy
+   tokens, in bf16 and in float32 on the same weights: the float32
+   logits within ``3e-2 * max(1, scale)``, the bf16 ones no farther
+   from the single float32 logits than ``MIXER_BF16_RATIO`` times the
+   single bf16 ones; the bf16 prefill's launches equal to
+   ``mixer_launches`` (384 ``ssd_intra``, 208 ``linear_scan`` and 96
+   ``flash_attention``, whisper 16 and 64), counted from 0; no whole
+   read (``ShardedTensor.gather``) of a leaf split over ``model``; the
+   cache's specs, the layout's bytes, the times beside the single
+   device's, peak under 80 GB; each kernel timed at its shard's shape
+   against its plain version (``mixer_kernel_ms``); then one FSDP+TP
+   step of ``mamba2-1.3b`` at 8 of 48 layers (B 2 x 2048) and of
+   ``recurrentgemma-9b`` at one group (B 2 x 2048) at the yi step's
+   gates, no kernel launched;
 9. dry-run phase (``dryrun_phase``), after the sharding phase: (a)
-   starts in CPU children while (b) runs on the card.  (b) The
+   starts in CPU children before the sharding phase, whose card work
+   their tracing overlaps, and is read after (b) has run on the card.  (b) The
    dry run held against the card: ``yi-6b`` whole in the 16-bit store,
    the LM phase's B 2 x 2048 prefill (``max_len`` 2064), traced on
    ``meta:0`` (``launch.dryrun.trace_cell``: shape-only tensors, a
@@ -268,7 +289,8 @@ Phases, each fatal on failure:
    ``right_ms``); ``ssd_intra``'s row carries its gram pass
    (``gram_ms``) and the bound at the float32 rate without tensor cores
    (``bound_old_ms``) beside the TF32 one; attention's row adds the
-   sharding phase's launches on yi's head shards; ``linear_scan``'s row
+   sharding phase's launches on yi's head shards, and the SSD, scan,
+   hd-256 and enc-dec rows the mixers step's; ``linear_scan``'s row
    (not a Pallas kernel: XLA's associative scan in the reference) its
    time from ``h0`` (``h0_ms``) and the float64 check;
 11. the last line: ``{"ok": true, "device": {...}}``.
@@ -378,8 +400,8 @@ def sort_split(torch, fn, n: int, elem_bytes: int, expected: int) -> dict:
     calls run and the last is counted; a profile whose counted call shows
     fewer sort kernels than the ``expected`` launches (none at all seen
     once in a whole run; 8 of 15 over all three calls seen once behind a
-    million unprofiled launches) is taken again, up to three profiles
-    (``profiles``).
+    million unprofiled launches; 13 of 15 in three profiles running,
+    seen once) is taken again, up to six profiles (``profiles``).
     The caller gates the count of the last one taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -387,7 +409,7 @@ def sort_split(torch, fn, n: int, elem_bytes: int, expected: int) -> dict:
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for profiles in range(1, 4):
+    for profiles in range(1, 7):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1_000_000)
@@ -411,7 +433,7 @@ def sort_split(torch, fn, n: int, elem_bytes: int, expected: int) -> dict:
         if len(sort) >= expected:
             break
     if not sort:
-        fail("sort_split: the profiler saw no sort kernel in three profiles")
+        fail("sort_split: the profiler saw no sort kernel in six profiles")
     other = [ms for k, ms in calls if not is_sort_kernel(k)]
     tile = SORT_KERNELS[0]
     groups = {"first_tile": sort[:1],
@@ -3551,6 +3573,27 @@ SHARD_MOE = ("moonshot-v1-16b-a3b", 2, 2, 2048)
 SHARD_PIPE = ("yi-6b", 8, 4, 2048)         # 4 stages, 4 microbatches
 SHARD_DP = ("yi-6b", 2, 8, 512)            # data 4
 SHARD_DP_N = 4
+# the mixers step: (arch, mesh, batch, prompt) at full width and depth in
+# the 16-bit store, the LM phase's prompts; whisper's 6 heads split over a
+# model axis of 2, not of 4
+SHARD_MIXERS = (("mamba2-1.3b", (2, 4), 2, 2048),
+                ("recurrentgemma-9b", (2, 4), 2, 4096),
+                ("whisper-tiny", (2, 4), 16, 432),
+                ("whisper-tiny", (4, 2), 16, 432))
+# and one FSDP+TP step each (arch, layers, batch, seq), float32;
+# recurrentgemma at 2048 positions (its window), not the training
+# phase's 4096: with both sides' weights, moments and gradients on the
+# card it peaked at 77.5 GB at 4096 before the 16.1 GB the earlier
+# phases leave
+SHARD_MIXER_TRAIN = (("mamba2-1.3b", 8, 2, 2048),
+                     ("recurrentgemma-9b", 3, 2, 2048))
+# the sharded bf16 forward's distance from the single device's float32
+# logits, at most this times the single bf16 forward's: both round every
+# op to bf16, in another order (the partial products of the row-parallel
+# GEMMs among them), and at full depth that rounding alone moves the
+# logits past 3e-2 * max(1, scale) (mamba2-1.3b 0.141 against a bound of
+# 0.121, recurrentgemma-9b 0.187 against 0.139, NVIDIA H100 80GB HBM3)
+MIXER_BF16_RATIO = 1.5
 
 
 def layout_bytes(tree) -> dict:
@@ -3586,13 +3629,15 @@ def timed(torch, fn):
 def grad_gap(torch, got, want, device) -> float:
     """The worst leaf's max |got - want| over max(its max |want|, 1e-3 of
     the largest over all leaves): ``got`` a tree of ``ShardedTensor``s,
-    ``want`` the single device's gradients."""
+    ``want`` the single device's gradients (on ``device`` or the host:
+    compared a leaf at a time on ``device``)."""
     from repro_torch.distributed.sharding import is_sharded
     from repro_torch.models.params import tree_leaves
     want = tree_leaves(want)
-    top = max(float(w.abs().max()) for w in want)
+    top = max(float(w.to(device).abs().max()) for w in want)
     gap = 0.0
     for a, b in zip(tree_leaves(got, is_sharded), want):
+        b = b.to(device)
         scale = max(float(b.abs().max()), 1e-3 * top)
         gap = max(gap, float((a.gather(device) - b).abs().max()) / scale)
     return gap
@@ -4001,11 +4046,384 @@ def shard_launcher(torch, device) -> None:
                  f"{res.returncode}, {said[0]!r}")
 
 
-def sharding_phase(torch, seed: int, device="cuda") -> dict:
+def mixer_launches(cfg, mesh_shape) -> dict:
+    """The LM kernels one sharded prefill launches, from the config and
+    the mesh alone: each SSD, RG-LRU and (local) attention layer once on
+    every device of the ``R x M`` grid (whisper: the encoder's and the
+    cross-attention's layers, ``kernel_layers``), except attention whose
+    query heads ``M`` does not split, once a row."""
+    R, M = mesh_shape
+    per = R * M if cfg.n_heads % M == 0 else R
+    want = {"ssd_intra": 0, "linear_scan": R * M * scan_layers(cfg),
+            "flash_attention": 0}
+    if cfg.family == "ssm":
+        want["ssd_intra"] = R * M * kernel_layers(cfg)
+    else:
+        want["flash_attention"] = per * kernel_layers(cfg)
+    return want
+
+
+def mixer_kernel_ms(torch, seed: int, reps: int) -> dict:
+    """Each kernel of the mixers step at its shard's shape on the 2x4 mesh
+    (whisper's also on 4x2), against its plain version at the kernel
+    phase's gates (``ssd_intra`` 1e-4 and ``linear_scan`` 1e-5 of the
+    scale, attention 2e-2 in bf16), timed (CUDA events); ``bound_ms``
+    as the kernel rows count it."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd.ssd import ssd_intra, ssd_intra_plain
+    rng = np.random.RandomState(seed + 31)
+    dev = "cuda"
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.tensor(rng.randn(*shape).astype(np.float32),
+                            device=dev).to(dtype)
+    out = {}
+    # mamba2-1.3b: b 1 a row, 16 of 64 heads a device
+    b, nc, Q, nh, hp, N = 1, 8, 256, 16, 64, 128
+    cum = torch.tensor(np.cumsum(-np.abs(rng.randn(b, nc, Q, nh)).astype(
+        np.float32) * 0.05, axis=2), device=dev)
+    u, Bm, Cm = normal(b, nc, Q, nh, hp), normal(b, nc, Q, N), \
+        normal(b, nc, Q, N)
+    errs = [float_err(torch, g, w, 1e-4 * max(1.0, float(w.abs().max())),
+                      f"ssd_intra (shard {what})")
+            for g, w, what in zip(ssd_intra(cum, u, Bm, Cm),
+                                  ssd_intra_plain(cum, u, Bm, Cm),
+                                  ("y", "state"))]
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * (b * nc * Q * nh + 2 * b * nc * Q * nh * hp
+                  + 2 * b * nc * Q * N + b * nc * nh * hp * N)
+    ops = b * nc * (tri * N * 2 + nh * (tri * 2 + tri * hp * 2 + Q * hp
+                                        + Q * hp * N * 2))
+    out["ssd_intra"] = {
+        "shape": [b, nc, Q, nh, hp, N], "max_abs_err": max(errs),
+        "ms": time_ms(torch, lambda: ssd_intra(cum, u, Bm, Cm), reps),
+        "plain_ms": time_ms(torch, lambda: ssd_intra_plain(cum, u, Bm, Cm),
+                            reps),
+        "bound_ms": bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)[0]}
+    del cum, u, Bm, Cm
+    # recurrentgemma-9b: B 1 a row, 1024 of 4096 channels a device
+    scan = scan_row(torch, rng, reps, (1, 4096, 1024))
+    out["linear_scan"] = {"shape": scan["shape"],
+                          "max_abs_err": scan["max_abs_err"],
+                          "f64_max_abs_err": scan["f64_max_abs_err"],
+                          "ms": scan["kernel_ms"],
+                          "plain_ms": scan["plain_ms"],
+                          "bound_ms": scan["bound"][0]}
+
+    def attention(name, b_, sq, skv, hq, hkv, d_, window, causal):
+        q = normal(b_, sq, hq, d_, dtype=torch.bfloat16)
+        k, v = (normal(b_, skv, hkv, d_, dtype=torch.bfloat16)
+                for _ in range(2))
+        err = float_err(torch, flash_attention(q, k, v, causal=causal,
+                                               window=window),
+                        flash_attention_plain(q, k, v, causal=causal,
+                                              window=window), 2e-2,
+                        f"flash_attention ({name})")
+        # the (query, key) pairs the mask keeps, two products of 2 FLOPs
+        # a multiply-add, at the bf16 peak; q, k, v, out once in bf16
+        qi = np.arange(sq)[:, None] + (skv - sq)
+        ki = np.arange(skv)[None, :]
+        keep = np.ones((sq, skv), bool)
+        if causal:
+            keep &= qi >= ki
+        if window:
+            keep &= qi - ki < window
+        pairs = int(keep.sum()) * b_ * hq
+        out[name] = {
+            "shape": [b_, sq, skv, hq, hkv, d_], "window": window,
+            "causal": causal, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: flash_attention(
+                q, k, v, causal=causal, window=window), reps),
+            "bound_ms": bound_ms(2 * (2 * b_ * sq * hq * d_
+                                      + 2 * b_ * skv * hkv * d_),
+                                 4 * pairs * d_, BF16_OPS_PER_S)[0]}
+    attention("flash_attention@hd256", 1, 4096, 4096, 4, 1, 256, 2048, True)
+    # whisper on 2x4: its 6 heads whole on a row's first device, B 8; on
+    # 4x2: 3 a device, B 4; the encoder, then the cross-attention
+    for tag, b_, h in (("2x4", 8, 6), ("4x2", 4, 3)):
+        attention(f"flash_attention@encdec {tag}", b_, 1500, 1500, h, h, 64,
+                  0, False)
+        attention(f"flash_attention@encdec {tag} cross", b_, 432, 1500, h,
+                  h, 64, 0, False)
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_steps(torch, model, params, prompts, max_len: int, extra: dict,
+                toks: list | None = None):
+    """A prefill and ``SHARD_DECODE_STEPS`` decode steps, fed ``toks`` or
+    (``None``) greedy -> (their logits, float32; the prefill's ms and
+    each step's; the cache; the tokens fed)."""
+    fed = []
+    with torch.no_grad():
+        (got, cache), pre_ms = timed(torch, lambda: model.prefill_fn(
+            params, prompts, max_len, **extra))
+        out, steps = [got.float()], []
+        for i in range(SHARD_DECODE_STEPS):
+            fed.append(got.argmax(-1) if toks is None else toks[i])
+            (got, cache), ms = timed(torch, lambda: model.decode_fn(
+                params, fed[-1], cache))
+            out.append(got.float())
+            steps.append(ms)
+    return out, pre_ms, steps, cache, fed
+
+
+def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
+                seq: int, device) -> dict:
+    """One model of the mixers step: the sharded prefill over the LM
+    phase's prompts and 4 decode steps (fed the single device's greedy
+    tokens) against the single-device run on the same weights, in the
+    configured bf16 and in float32 (the same 16-bit-stored weights read
+    in float32).  Gates: the float32 pair within ``3e-2 * max(1,
+    scale)``; the sharded bf16 logits no farther from the single float32
+    ones than ``MIXER_BF16_RATIO`` times the single bf16 logits are (the
+    bf16 rounding alone takes both past ``3e-2 * scale`` at full depth);
+    the launches of the bf16 prefill (the main path's run) equal
+    ``mixer_launches``; no whole read of a leaf split over ``model``.
+    Returns those launches by kernel row."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (ShardedTensor,
+                                                  activation_hints,
+                                                  is_sharded)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_leaves
+    cfg = get_config(arch)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    mesh = make_host_mesh(mesh_shape, devices=[device] * math.prod(
+        mesh_shape))
+
+    def models(c):
+        return (build_model(c, device=device), Served(
+            build_model(c, activation_hints(c, mesh, batch, "prefill")),
+            build_model(c, activation_hints(c, mesh, batch, "decode"))))
+    single, sharded = models(cfg)
+    single32, sharded32 = models(f32)
+    held = torch.cuda.memory_allocated() / 1e9
+    params = init_params(single.spec(), seed, device=device,
+                         store=cfg.dtype)
+    seed_conv_taps(torch, params, seed)
+    prompts = torch.tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (batch, seq)).astype(np.int32), device=device)
+    extra = lm_inputs(torch, cfg, seed, batch)
+    max_len = seq + SHARD_DECODE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    # the single device's greedy tokens feed every other run's steps
+    wants, single_ms, single_dec, _, toks = serve_steps(
+        torch, single, params, prompts, max_len, extra)
+    wants32 = serve_steps(torch, single32, params, prompts, max_len, extra,
+                          toks)[0]
+    sparams = placed(params, single.spec(), mesh)
+    del params
+    torch.cuda.empty_cache()
+    gathered = []
+    gather = ShardedTensor.gather
+
+    def spy(self, dev):   # a whole leaf read on one device
+        if any("model" in str(e) for e in self.sharding.spec):
+            gathered.append(list(map(str, self.sharding.spec)))
+        return gather(self, dev)
+    ShardedTensor.gather = spy
+    try:
+        kernels.reset_counts()   # the main path's run starts here
+        with torch.no_grad():
+            (got, scache), mesh_ms = timed(torch, lambda: sharded.prefill_fn(
+                sparams, prompts, max_len, **extra))
+        launched = dict(kernels.LAUNCHES)   # ... and ends here
+        gots, _, dec_ms, scache, _ = serve_steps(
+            torch, sharded, sparams, prompts, max_len, extra, toks)
+        gots32 = serve_steps(torch, sharded32, sparams, prompts, max_len,
+                             extra, toks)[0]
+    finally:
+        ShardedTensor.gather = gather
+    del got
+
+    def errs(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+    err32 = errs(gots32, wants32)
+    bounds = [3e-2 * max(1.0, float(w.abs().max())) for w in wants32]
+    mesh16, single16 = errs(gots, wants32), errs(wants, wants32)
+    want_launches = mixer_launches(cfg, mesh_shape)
+    got_launches = {k: launched[k] for k in want_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    line = {"phase": "sharding", "part": "mixers", "arch": arch,
+            "layers": cfg.n_layers, "store": cfg.dtype, "batch": batch,
+            "seq": seq, "max_len": max_len, "mesh": dict(mesh.shape),
+            "inputs": {k: list(v.shape) for k, v in extra.items()},
+            "f32_logits_err": err32, "f32_logits_bound": bounds,
+            "bf16_vs_single_bf16": errs(gots, wants),
+            "bf16_vs_single_f32": mesh16,
+            "single_bf16_vs_single_f32": single16,
+            "launches": got_launches, "expected_launches": want_launches,
+            "wgmma_launches": launched["flash_attention_wgmma"],
+            "model_split_gathers": len(gathered),
+            "cache_specs": sorted({str(tuple(x.sharding.spec)) for x in
+                                   tree_leaves(scache, is_sharded)}),
+            "prefill_ms": mesh_ms, "single_prefill_ms": single_ms,
+            "decode_ms": dec_ms, "single_decode_ms": single_dec,
+            "params_bytes": layout_bytes(sparams),
+            "cache_bytes": layout_bytes(scache),
+            "allocated_before_gb": held, "peak_device_gb": peak,
+            "card": card_line()}
+    print(json.dumps(line), flush=True)
+    del sparams, scache
+    torch.cuda.empty_cache()
+    where = f"sharding mixers {arch} {tuple(mesh_shape)}"
+    if not all(math.isfinite(e) and e <= b for e, b in zip(err32, bounds)):
+        fail(f"{where}: float32 logits off the single device: {err32} "
+             f"(bounds {bounds})")
+    if not max(mesh16) <= MIXER_BF16_RATIO * max(single16):
+        fail(f"{where}: bf16 logits {max(mesh16)} from the float32 ones, "
+             f"the single device's {max(single16)}")
+    if got_launches != want_launches:
+        fail(f"{where}: launches {got_launches}, expected {want_launches}")
+    if gathered:
+        fail(f"{where}: {len(gathered)} whole reads of leaves split over "
+             f"model: {gathered[:4]}")
+    if peak >= 80:
+        fail(f"{where}: peak device memory {peak} GB")
+    rows = {k: {"launches": launched[k]} for k in ("ssd_intra",
+                                                   "linear_scan")}
+    if want_launches["flash_attention"]:   # the LM phase's row of its model
+        tc = launched["flash_attention_wgmma"]
+        rows[{m[0]: m[1] for m in LM_MODELS}[arch]] = {
+            "launches": launched["flash_attention"],
+            "routes": {"wgmma": tc, "simt": launched["flash_attention"] - tc}}
+    return rows
+
+
+class Served:
+    """Prefill with one model, decode with the other (a mesh model is
+    built per step kind, as the reference builds one)."""
+
+    def __init__(self, pre, dec):
+        self.prefill_fn, self.decode_fn = pre.prefill_fn, dec.decode_fn
+
+
+def shard_mixer_train(torch, seed: int, arch: str, layers: int, batch: int,
+                      seq: int, mesh, device) -> None:
+    """One FSDP+TP step of ``arch`` at ``layers`` (the SSM and RG-LRU
+    mixers on their shards) against the single-device step on the same
+    weights and batch, at the yi step's gates: the gradients within
+    ``SHARD_GRAD_TOL`` of each leaf's scale, the loss within 2e-3, the
+    params after the step within atol 3e-3; no kernel launched.  Each
+    side runs ``build_train_step``'s two halves at accum 1,
+    ``loss_and_grads`` then ``adamw_update``, so its gradients serve both
+    gates; one side's weights and moments are on the card at a time (the
+    single device's gradients and updated weights wait on the host)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import (activation_hints,
+                                                  batch_shardings,
+                                                  is_sharded)
+    from repro_torch.models import build_model, param_count
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import OptimizerConfig, loss_and_grads
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
+    cfg = dataclasses.replace(train_config(arch, layers), dtype="float32")
+    single = build_model(cfg, device=device)
+    model = build_model(cfg, activation_hints(cfg, mesh, batch, "train"))
+    opt = OptimizerConfig(**SHARD_OPT)
+    data = train_batch(torch, cfg, seed, batch, seq, device)
+    sdata = tree_map(lambda x, sh: sh.place(x), data,
+                     batch_shardings(data, mesh, batch))
+    params = fresh_params(torch, single, seed, device)
+
+    def on_host(tree):   # a copy: AdamW writes the weights in place
+        return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+    start = on_host(params)    # the sharded side starts from these
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+
+    def step(m, p, d):
+        (loss, _, grads), ms = timed(torch, lambda: loss_and_grads(m, p,
+                                                                   d))
+        p, _, _ = adamw_update(p, grads, init_opt_state(p), opt)
+        return loss, grads, p, ms
+    l0, g0, stepped, single_ms = step(single, params, data)
+    g0, stepped = on_host(g0), on_host(stepped)
+    del params
+    torch.cuda.empty_cache()
+    sparams = placed(start, single.spec(), mesh)
+    del start
+    l1, g1, sparams, mesh_ms = step(model, sparams, sdata)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    grad_err = grad_gap(torch, g1, g0, device)
+    del g0, g1
+    param_err = max(float((a.gather(device) - b.to(device)).abs().max())
+                    for a, b in zip(tree_leaves(sparams, is_sharded),
+                                    tree_leaves(stepped)))
+    loss_err = abs(float(l1) - float(l0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    line = {"phase": "sharding", "part": "mixers_train", "arch": arch,
+            "layers": [cfg.n_layers, train_config(arch, None).n_layers],
+            "mesh": dict(mesh.shape), "params": param_count(single.spec()),
+            "batch": batch, "seq": seq, "loss": float(l1),
+            "single_loss": float(l0), "loss_err": loss_err,
+            "grad_rel_err": grad_err, "step_param_err": param_err,
+            "grads_ms": mesh_ms, "single_grads_ms": single_ms,
+            "params_bytes": layout_bytes(sparams),
+            "launches": launched, "peak_device_gb": peak,
+            "card": card_line()}
+    print(json.dumps(line), flush=True)
+    del sparams, stepped
+    torch.cuda.empty_cache()
+    if not grad_err <= SHARD_GRAD_TOL:
+        fail(f"sharding mixers train {arch}: gradients off the single "
+             f"device by {grad_err} of their scale")
+    if not loss_err <= 2e-3:
+        fail(f"sharding mixers train {arch}: loss off by {loss_err}")
+    if not param_err <= 3e-3:
+        fail(f"sharding mixers train {arch}: params off by {param_err}")
+    if launched:
+        fail(f"sharding mixers train {arch}: launched {launched}")
+    if peak >= 80:
+        fail(f"sharding mixers train {arch}: peak device memory {peak} GB")
+
+
+def shard_mixers(torch, seed: int, reps: int, device) -> dict:
+    """The mixers step (module docstring, phase 8 (7)) -> the kernels'
+    launches on the sharded prefills by kernel row."""
+    from repro_torch.launch.mesh import make_host_mesh
+    import gc
+    rows: dict = {}
+    for arch, shape, batch, seq in SHARD_MIXERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for row, v in shard_mixer(torch, seed, arch, shape, batch, seq,
+                                  device).items():
+            got = rows.setdefault(row, {"launches": 0})
+            got["launches"] += v["launches"]
+            for route, n in v.get("routes", {}).items():
+                got.setdefault("routes", {"wgmma": 0, "simt": 0})
+                got["routes"][route] += n
+    print(json.dumps({"phase": "sharding", "part": "mixer_kernels",
+                      "rows": mixer_kernel_ms(torch, seed, reps),
+                      "card": card_line()}), flush=True)
+    mesh = make_host_mesh(SHARD_MESH, devices=[device] * math.prod(
+        SHARD_MESH))
+    for arch, layers, batch, seq in SHARD_MIXER_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shard_mixer_train(torch, seed, arch, layers, batch, seq, mesh,
+                          device)
+    return rows
+
+
+def sharding_phase(torch, seed: int, reps: int, device="cuda") -> dict:
     """The LM's mesh forms on a 2x4 data x model mesh over ``[device] *
-    8`` (module docstring, phase 8); every gate fatal.  Returns
-    ``flash_attention``'s launches on the sharded prefill's head shards,
-    by route."""
+    8`` (module docstring, phase 8); every gate fatal.  Returns the LM
+    kernels' launches on the sharded prefills by kernel row (with the
+    attention rows' routes): yi's head shards and the mixers step's."""
     import gc
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -4027,9 +4445,12 @@ def sharding_phase(torch, seed: int, device="cuda") -> dict:
                                                          device)),
                      ("dp_int8", lambda: shard_dp_compressed(torch, seed,
                                                              device)),
-                     ("launcher", lambda: shard_launcher(torch, device))):
+                     ("launcher", lambda: shard_launcher(torch, device)),
+                     ("mixers", lambda: shard_mixers(torch, seed, reps,
+                                                     device))):
         ts = time.perf_counter()
         parts[name] = fn()
+        gc.collect()   # a part's cycles hold card memory until collected
         torch.cuda.empty_cache()
         parts[name + "_s"] = time.perf_counter() - ts
     print(json.dumps({"phase": "sharding_all", "seconds":
@@ -4038,7 +4459,13 @@ def sharding_phase(torch, seed: int, device="cuda") -> dict:
                       "allocated_after_gc_gb": base,
                       "part_seconds": {k: v for k, v in parts.items()
                                        if k.endswith("_s")}}), flush=True)
-    return parts["serve"]
+    rows = parts["mixers"]
+    rows.setdefault("flash_attention", {"launches": 0, "routes": {
+        "wgmma": 0, "simt": 0}})
+    for route, n in parts["serve"].items():
+        rows["flash_attention"]["launches"] += n
+        rows["flash_attention"]["routes"][route] += n
+    return rows
 
 
 # the dry run's production cells on the 16x16 mesh of fake devices, each
@@ -4086,10 +4513,7 @@ def dryrun_cells(procs, t0: float) -> list:
                 fail(f"dry run {arch} {shape}: rc {p.returncode}: "
                      f"{(se or so).strip().splitlines()[-1:]}")
     finally:
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_children(procs)
     rows = []
     for arch, shape, _ in procs:
         tag = f"{arch}__{shape}" if shape else "hiperfact-closure"
@@ -4243,23 +4667,30 @@ def dryrun_card_check(torch, seed: int) -> dict:
     return row
 
 
-def dryrun_phase(torch, seed: int) -> None:
-    """Phase 9 (module docstring): the production cells start in CPU
-    children, the card check runs meanwhile, then the cells are read."""
-    t0 = time.perf_counter()
-    procs = dryrun_start()
+def stop_children(procs) -> None:
+    for _, _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_phase(torch, seed: int, procs, t0: float) -> None:
+    """Phase 9 (module docstring): the production cells' CPU children
+    (``dryrun_start``, started at ``t0``, before the sharding phase, whose
+    card work their tracing overlaps), the card check, then the cells are
+    read."""
+    t1 = time.perf_counter()
     try:
         card = dryrun_card_check(torch, seed)
     except BaseException:
-        for _, _, p in procs:
-            p.kill()
-            p.wait()
+        stop_children(procs)
         raise
-    t1 = time.perf_counter()
+    t2 = time.perf_counter()
     cells = dryrun_cells(procs, t0)
     print(json.dumps({"phase": "dryrun_all",
-                      "seconds": time.perf_counter() - t0,
-                      "card_check_s": t1 - t0,
+                      "seconds": time.perf_counter() - t1,
+                      "since_children_start_s": time.perf_counter() - t0,
+                      "card_check_s": t2 - t1,
                       "cells": [c["cell"] for c in cells],
                       "prefill_over_bound": card["prefill_over_bound"]}),
           flush=True)
@@ -4397,11 +4828,21 @@ def main() -> int:
                         sizes)
     corpus = trainer_phase(torch, args.seed, args.reps)
     launches = {k: launches[k] + corpus.get(k, 0) for k in launches}
-    # last, so the kernel phase's sort profiles run as in earlier slices
-    for route, n in sharding_phase(torch, args.seed).items():
-        lm["flash_attention"]["routes"][route] += n
-        launches["flash_attention"] += n
-    dryrun_phase(torch, args.seed)
+    # the dry run's CPU children trace while the sharding phase runs
+    t_dry = time.perf_counter()
+    procs = dryrun_start()
+    try:
+        # last, so the kernel phase's sort profiles run as in earlier
+        # slices
+        sharded_lm = sharding_phase(torch, args.seed, args.reps)
+    except BaseException:
+        stop_children(procs)
+        raise
+    for row, v in sharded_lm.items():
+        launches[row] += v["launches"]
+        for route, n in v.get("routes", {}).items():
+            lm[row]["routes"][route] += n
+    dryrun_phase(torch, args.seed, procs, t_dry)
 
     line = []
     for k in KERNELS:

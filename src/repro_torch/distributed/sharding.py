@@ -211,6 +211,15 @@ def activation_hints(cfg, mesh, batch: int, kind: str = "train",
     return Hints(specs=specs, mesh=mesh, kind=kind)
 
 
+def cache_leaf_spec(leaf, mesh, dp) -> P:
+    """The layout the mesh forms give a decode-cache leaf (a ``LeafSpec``
+    whose dims are ``[layers,] batch, ...``): ``spec_for``'s, with the
+    batch over ``dp`` (the activations' data axes, ``Hints.dp``)."""
+    lead = 1 if leaf.axes[0] == "layers" else 0
+    rest = tuple(spec_for(leaf.shape, leaf.axes, mesh))[lead + 1:]
+    return P(*([None] * lead), dp, *rest)
+
+
 def batch_shardings(input_tree, mesh, batch: int):
     """NamedShardings for a train/serve input batch: dim 0 = batch -> DP."""
     from repro_torch.models.params import tree_map
@@ -424,6 +433,9 @@ class ShardedTensor(list):
         whole), assembled from the masters it meets (a master's whole
         block as it is, a part of one as a view); differentiable."""
         ranges = list(ranges) + [(0, n) for n in self.shape[len(ranges):]]
+        if any(hi <= lo for lo, hi in ranges):   # e.g. a device's rows of
+            return self[0].new_empty(            # heads it has none of
+                [max(0, hi - lo) for lo, hi in ranges], device=device)
         grid = self.sharding.grid(self.ndim)
         bs = self.sharding.block_shape(self.shape)
         per_dim = [[(i, max(lo, i * b) - i * b, min(hi, (i + 1) * b) - i * b)

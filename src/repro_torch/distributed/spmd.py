@@ -12,10 +12,11 @@ differentiable, so a backward pass runs the transposed collective
 physical device and the repeats share it.
 
 Under an active ``launch.hlo_analysis.Recorder`` each function announces
-itself (``psum``/``pmax`` as ``all-reduce``, ``all_gather`` as
-``all-gather``, ``all_to_all`` as ``all-to-all``, ``ppermute`` as
-``collective-permute``) with its group and result bytes a device; its
-own copies and sums are then not counted as ops.
+itself (``psum``/``pmax`` as ``all-reduce``, ``psum_scatter`` as
+``reduce-scatter``, ``all_gather`` as ``all-gather``, ``all_to_all`` as
+``all-to-all``, ``ppermute`` as ``collective-permute``) with its group
+and result bytes a device; its own copies and sums are then not counted
+as ops.
 """
 
 from __future__ import annotations
@@ -73,6 +74,24 @@ def psum(xs, devices=None) -> list:
             acc = acc + x.to(d)
         return acc
     return _per_device(total, _devices(xs, devices))
+
+
+@_announced("reduce-scatter")
+def psum_scatter(xs, dim: int = -1, devices=None) -> list:
+    """Sum over the axis, device ``i`` keeping only its part: positions
+    ``size * i // n`` to ``size * (i + 1) // n`` along ``dim`` (the
+    reference's ``psum_scatter(..., tiled=True)`` where ``n`` divides
+    ``size``), summed in the axis's order."""
+    devices = _devices(xs, devices)
+    n, size = len(xs), xs[0].shape[dim]
+    out = []
+    for i, d in enumerate(devices):
+        lo, hi = size * i // n, size * (i + 1) // n
+        acc = xs[0].narrow(dim, lo, hi - lo).to(d)
+        for x in xs[1:]:
+            acc = acc + x.narrow(dim, lo, hi - lo).to(d)
+        out.append(acc)
+    return out
 
 
 @_announced("all-reduce")

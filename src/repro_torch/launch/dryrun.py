@@ -66,7 +66,8 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.distributed.sharding import (NamedSharding, P,
                                               activation_hints,
-                                              batch_shardings, shardings_for)
+                                              batch_shardings,
+                                              cache_leaf_spec, shardings_for)
 from repro_torch.launch.fake import ShapeMode
 from repro_torch.launch.hlo_analysis import Recorder, analyze_trace
 from repro_torch.launch.mesh import make_production_mesh
@@ -133,38 +134,14 @@ def _place(tree, shardings):
     return tree_map(lambda x, sh: sh.place(x), tree, shardings)
 
 
-_SPLIT = (BlockKind.ATTN, BlockKind.MOE)
-
-
 def cache_shardings(cfg, cspec, mesh, hints):
     """The cache's layout as the port's prefill leaves it and its decode
     reads it (the reference's ``out_shardings`` constraint; here the mesh
-    forms lay the cache out themselves): a decoder's attention and MoE
-    blocks' ``k``/``v`` with the batch over the data axes and
-    ``cache_seq`` over ``model`` (``spec_for``'s layout of those leaves,
-    ``transformer._attn_cache_sharded``), every other leaf by batch rows
-    alone (the mixers that run on gathered weights, a replica at a time,
-    and every leaf of the enc-dec model)."""
-    from repro_torch.models.transformer import _layer_groups
-    dp = hints.dp()
-    group, _, tail = _layer_groups(cfg) if cfg.family != "encdec" \
-        else ((), 0, ())
-
-    def lay(kind, name, lead):
-        split = kind in _SPLIT and name in ("k", "v")
-        return NamedSharding(mesh, P(*lead, dp, *(("model",) if split
-                                                  else ())))
-    out = {"lens": lay(None, "lens", ())}
-    if cfg.family == "encdec":
-        out["layers"] = {k: lay(None, k, (None,)) for k in cspec["layers"]}
-    else:
-        out["layers"] = {f"b{i}": {k: lay(kind, k, (None,))
-                                   for k in cspec["layers"][f"b{i}"]}
-                         for i, kind in enumerate(group)}
-    if tail:
-        out["tail"] = [{k: lay(kind, k, ()) for k in leaves}
-                       for leaves, kind in zip(cspec["tail"], tail)]
-    return out
+    forms lay the cache out themselves, ``cache_leaf_spec``:
+    ``cache_seq``, ``heads3`` and ``mlp`` over ``model`` where the model
+    size divides them, the batch over the activations' data axes)."""
+    return tree_map(lambda s: NamedSharding(mesh, cache_leaf_spec(
+        s, mesh, hints.dp())), cspec, is_leaf=is_leaf_spec)
 
 
 def build_cell(arch: str, shape_name: str, mesh, cfg=None, shape=None):
@@ -210,7 +187,8 @@ def build_cell(arch: str, shape_name: str, mesh, cfg=None, shape=None):
     # model size
     M = mesh.shape.get("model", 1)
     cache_len = shape.seq_len
-    if cfg.family != "encdec" and set(cfg.block_kinds()) & set(_SPLIT):
+    if set(cfg.block_kinds()) & {BlockKind.ATTN, BlockKind.MOE} \
+            or cfg.family == "encdec":
         cache_len = -(-cache_len // M) * M
     cspec = model_cache_spec(cfg, B, cache_len)
     cache = _place(abstract_params(cspec),

@@ -23,12 +23,22 @@ decoder layer is rematerialized (``layers.remat``, the reference's
 ``jax.checkpoint`` of its scan bodies) and attention takes the
 reference's ``chunked_attention``, not the kernel.
 
-On a mesh (``build_model(cfg, hints)``): the reference's explicit code
-has no sharded form of this family's mixers, so each batch block runs
-the whole model on its replica's first device from the gathered
-weights (``_replicas``), with the same values; the loss reduces the NLL
-sums and label counts over the replicas, and the cache's leaves are
-``ShardedTensor``s split over the batch.
+On a mesh (``build_model(cfg, hints)``): the layout the reference gives
+these layers through their parameters' logical axes.  The batch splits
+into ``R`` row blocks over the data axes, each run on a row of ``M``
+devices along ``model`` (``Hints.grid``).  The encoder's and the
+decoder's self-attention and the cross-attention run by head shard
+(``layers.attention_tp``, non-causal, causal, and with K/V projected
+from the encoder's output), or whole on the row's first device where
+the heads do not split over ``model`` (``layers.head_devices``); the MLP
+column- then row-parallel (``mlp_tp``); the embedding and the serving
+logits vocab-parallel.  The cache's self-attention K/V are split along
+``cache_seq`` over ``model`` (``transformer._attn_cache_sharded``) and a
+decode step attends them block by block (``attention_decode_tp``); the
+cross-attention's K/V are replicated over ``model`` (one master per
+batch block, on its row's first device), each head shard reading its
+own KV heads (``attention_cached_tp``).  The loss reduces the NLL sums
+and label counts over the replicas.
 
 In place: ``decode_fn`` writes each layer's new K/V row into the cache
 it is given and returns that cache with ``lens`` advanced.  No remat
@@ -40,22 +50,27 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed import spmd
-from repro_torch.distributed.sharding import (NamedSharding, P,
-                                              ShardedTensor, is_sharded,
-                                              whole)
+from repro_torch.distributed.sharding import piece, whole
 from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
                                        apply_norm, attention,
-                                       attention_spec, decode_attention,
-                                       dense, layernorm_spec, mlp_spec,
-                                       remat, sinusoidal_rows,
+                                       attention_cached_tp,
+                                       attention_decode_tp, attention_spec,
+                                       decode_attention, dense,
+                                       head_devices, layernorm_spec,
+                                       mlp_spec, remat, sinusoidal_rows,
                                        sinusoidal_table)
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_map)
 from repro_torch.models.transformer import (_attn_cache_from_prefill,
-                                            _attn_part, _embed_tokens,
-                                            _layer, _rows, _unstack,
-                                            attn_decode, chunked_ce)
+                                            _attn_cache_sharded,
+                                            _attn_part, _attn_rows,
+                                            _embed_tokens, _embed_tp,
+                                            _kv_blocks, _layer, _logits_tp,
+                                            _mlp_rows, _rows, _rows_sharded,
+                                            _stack_sharded, _unstack,
+                                            _whole_tree, attn_decode,
+                                            chunked_ce)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -148,7 +163,7 @@ class EncDecLM:
 
     ``device`` (default ``"cuda"``) is where its params live; the model
     raises at construction when that is CUDA and torch sees no card.
-    ``hints`` with a mesh run every entry point on the replicas
+    ``hints`` with a mesh make every entry point run its mesh form
     (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, hints: Hints = NO_HINTS,
@@ -160,56 +175,142 @@ class EncDecLM:
             for d in set(hints.mesh.device_list()):
                 check_device(d)
             device = self.grid[0, 0]
-            self._local = EncDecLM(cfg, device=device)
         self.device = check_device(device)
 
-    def _replicas(self, params, tree):
-        """(replica r's gathered params, its rows of ``tree``) for each
-        batch block ``r``, on ``grid[r, 0]``."""
-        R = self.grid.shape[0]
-        for r in range(R):
-            dev = self.grid[r, 0]
-            yield (tree_map(lambda x: whole(x, dev), params,
-                            is_leaf=is_sharded),
-                   tree_map(lambda x: _rows(x, dev, r, R), tree,
-                            is_leaf=is_sharded))
+    # -- mesh forms (module docstring) -----------------------------------------
+    def _norm_rows(self, pn, H):
+        grid = self.grid
+        return [[apply_norm(_whole_tree(pn, d), h, self.cfg.norm)
+                 for h, d in zip(row, grid[r])] for r, row in enumerate(H)]
 
-    def _loss_replicas(self, params, batch):
+    def _encode_rows(self, params, frames, train: bool = False):
+        """``encode`` over the grid -> each batch block's encoder output on
+        every device of its row."""
+        cfg, grid = self.cfg, self.grid
+        R = grid.shape[0]
+        dt = DTYPES[cfg.dtype]
+        H = [[_add_positions(_rows(frames, d, r, R).to(dt)) for d in grid[r]]
+             for r in range(R)]
+
+        def body(H, bp):
+            H, _ = _attn_rows(bp["attn"], bp["ln1"], H, cfg, grid, None,
+                              causal=False, train=train)
+            return _mlp_rows(bp, H, cfg, grid)
+
+        for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
+            H = remat(body, H, bp) if train else body(H, bp)
+        return self._norm_rows(params["enc_norm"], H)
+
+    def _decoder_rows(self, params, tokens, E, collect_cache: bool = False,
+                      max_len: int = 0, train: bool = False):
+        """``_decoder_hidden`` over the grid against the encoder rows ``E``
+        -> (H after the final norm, the stacked cache layers | None)."""
+        cfg, grid, hints = self.cfg, self.grid, self.hints
+        R = grid.shape[0]
+        H = [[_add_positions(h) for h in _embed_tp(
+            params, _rows(tokens, grid[r, 0], r, R), cfg, list(grid[r]))]
+            for r in range(R)]
+
+        def body(H, bp):
+            H, kv_self = _attn_rows(bp["attn"], bp["ln1"], H, cfg, grid,
+                                    None, train=train)
+            H, kv_x = _attn_rows(bp["xattn"], bp["lnx"], H, cfg, grid, None,
+                                 causal=False, train=train, kv_H=E)
+            return _mlp_rows(bp, H, cfg, grid), kv_self, kv_x
+
+        caches = []
+        for bp in _unstack(params["dec_blocks"], cfg.n_layers):
+            if train:
+                H = remat(lambda H, bp: body(H, bp)[0], H, bp)
+                continue
+            H, kv_self, kv_x = body(H, bp)
+            if collect_cache:
+                Se = E[0][0].shape[1]
+                c = _attn_cache_sharded(kv_self, hints, grid, max_len)
+                c.update(_rows_sharded([dict(zip(("xk", "xv"), _kv_blocks(
+                    kv_x[r], grid[r, 0], 0, Se, Se))) for r in range(R)],
+                    hints))
+                caches.append(c)
+        H = self._norm_rows(params["final_norm"], H)
+        return H, (_stack_sharded(caches) if collect_cache else None)
+
+    def _loss_rows(self, params, batch):
+        cfg, grid = self.cfg, self.grid
+        R = grid.shape[0]
+        E = self._encode_rows(params, batch["frames"], train=True)
+        H, _ = self._decoder_rows(params, batch["tokens"], E, train=True)
         tots, cnts = [], []
-        for pw, b in self._replicas(params, batch):
-            _, met = self._local.loss_fn(pw, b)
-            tots.append(met["nll"])
-            cnts.append(met["tokens"])
-        devs = [self.device] * len(tots)
+        for r in range(R):
+            dev = grid[r, 0]
+            t, c = chunked_ce(H[r][0], whole(params["embed"], dev).T,
+                              _rows(batch["labels"], dev, r, R),
+                              cfg.logit_chunk, cfg.vocab)
+            tots.append(t)
+            cnts.append(c)
+        devs = [self.device] * R
         tot, cnt = spmd.psum(tots, devs)[0], spmd.psum(cnts, devs)[0]
         return tot / torch.clamp(cnt, min=1), {
             "nll": tot, "tokens": cnt,
             "aux": torch.zeros((), dtype=torch.float32, device=self.device)}
 
-    def _prefill_replicas(self, params, tokens, max_len, frames):
-        outs = [self._local.prefill_fn(pw, b["tokens"], max_len,
-                                       b["frames"])
-                for pw, b in self._replicas(params, {"tokens": tokens,
-                                                     "frames": frames})]
-        mesh, dp, R = self.hints.mesh, self.hints.dp(), len(outs)
+    def _prefill_rows(self, params, tokens, max_len, frames):
+        grid = self.grid
+        R = grid.shape[0]
+        E = self._encode_rows(params, frames)
+        H, layers = self._decoder_rows(params, tokens, E, True, max_len)
+        logits = torch.cat([_logits_tp(self, params, H[r][0][:, -1, :],
+                                       list(grid[r])).to(self.device)
+                            for r in range(R)], 0)
+        S = tokens.shape[1]
+        lens = _rows_sharded([torch.full((H[r][0].shape[0],), S,
+                                         dtype=torch.int32,
+                                         device=grid[r, 0])
+                              for r in range(R)], self.hints)
+        return logits, {"layers": layers, "lens": lens}
 
-        def layout(*xs):   # stacked leaves [L, Br, ...]; lens [Br]
-            at = 0 if xs[0].ndim == 1 else 1
-            shape = list(xs[0].shape)
-            shape[at] *= R
-            spec = P(dp) if at == 0 else P(None, dp)
-            return ShardedTensor(NamedSharding(mesh, spec), shape, list(xs))
-        cache = tree_map(layout, *[c for _, c in outs])
-        return torch.cat([lg.to(self.device) for lg, _ in outs], 0), cache
+    def _decode_rows(self, params, tok, cache):
+        cfg, grid = self.cfg, self.grid
+        R, M = grid.shape
+        lens = list(cache["lens"])
+        H = []
+        for r in range(R):
+            hs = _embed_tp(params, _rows(tok, grid[r, 0], r, R)[:, None], cfg,
+                           list(grid[r]))
+            H.append([h + sinusoidal_rows(lens[r].to(h.device), h.shape[-1])[
+                :, None, :].to(h.dtype) for h in hs])
+        for bp, c in zip(_unstack(params["dec_blocks"], cfg.n_layers),
+                         _unstack(cache["layers"], cfg.n_layers)):
+            for r in range(R):
+                devs = list(grid[r])
+                xs = [apply_norm(_whole_tree(bp["ln1"], d), h, cfg.norm)
+                      for h, d in zip(H[r], devs)]
+                outs = attention_decode_tp(
+                    bp["attn"], xs, cfg, [lens[r].to(d) for d in devs], devs,
+                    list(c["k"][r * M:(r + 1) * M]),
+                    list(c["v"][r * M:(r + 1) * M]))
+                H[r] = [h + o for h, o in zip(H[r], outs)]
+                # cross-attention against the static encoder K/V
+                tp = head_devices(cfg, devs)
+                xs = [apply_norm(_whole_tree(bp["lnx"], d), h, cfg.norm)
+                      for h, d in zip(H[r], tp)]
+                Br, Se = xs[0].shape[0], c["xk"].shape[1]
 
-    def _decode_replicas(self, params, tok, cache):
-        logits = []
-        for r, (pw, t) in enumerate(self._replicas(params, tok)):
-            cr = tree_map(lambda x: x[r], cache, is_leaf=is_sharded)
-            lg, cr = self._local.decode_fn(pw, t, cr)
-            cache["lens"][r].copy_(cr["lens"])
-            logits.append(lg.to(self.device))
-        return torch.cat(logits, 0), cache
+                def kv(j, klo, khi):
+                    rng = [(r * Br, (r + 1) * Br), (0, Se), (klo, khi)]
+                    return (piece(c["xk"], tp[j], rng),
+                            piece(c["xv"], tp[j], rng),
+                            torch.ones((Br, Se), dtype=torch.bool,
+                                       device=tp[j]))
+                outs = attention_cached_tp(bp["xattn"], xs, cfg, tp, None, kv)
+                outs = outs + [outs[0].to(d) for d in devs[len(tp):]]
+                H[r] = [h + o for h, o in zip(H[r], outs)]
+            H = _mlp_rows(bp, H, cfg, grid)
+        for m in cache["lens"]:
+            m += 1
+        H = self._norm_rows(params["final_norm"], H)
+        return torch.cat([_logits_tp(self, params, H[r][0][:, 0, :],
+                                     list(grid[r])).to(self.device)
+                          for r in range(R)], 0), cache
 
     def spec(self) -> dict:
         return encdec_spec(self.cfg)
@@ -275,7 +376,7 @@ class EncDecLM:
         loss)} -> (loss, {"nll", "tokens", "aux"}): the mean NLL over the
         labelled tokens; ``aux`` is 0 (no experts)."""
         if self.hints.sharded:
-            return self._loss_replicas(params, batch)
+            return self._loss_rows(params, batch)
         enc_out = self.encode(params, batch["frames"], train=True)
         h, _ = self._decoder_hidden(params, batch["tokens"], enc_out,
                                     train=True)
@@ -293,7 +394,7 @@ class EncDecLM:
         """Encode ``frames`` and run the decoder over ``tokens`` ->
         (last-position logits [B,V], cache)."""
         if self.hints.sharded:
-            return self._prefill_replicas(params, tokens, max_len, frames)
+            return self._prefill_rows(params, tokens, max_len, frames)
         enc_out = self.encode(params, frames)
         h, layers = self._decoder_hidden(params, tokens, enc_out,
                                          collect_cache=True,
@@ -310,7 +411,7 @@ class EncDecLM:
         ``lens`` advanced.  The sinusoidal row is computed at the device
         tensor ``lens``: no host sync."""
         if self.hints.sharded:
-            return self._decode_replicas(params, tok, cache)
+            return self._decode_rows(params, tok, cache)
         cfg = self.cfg
         lens = cache["lens"]
         h = _embed_tokens(params, tok[:, None], cfg)

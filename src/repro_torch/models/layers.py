@@ -27,18 +27,24 @@ the mesh and the step kind.  There they constrain GSPMD's layout; here
 devices explicitly (``distributed/spmd.py`` collectives, weights read
 block by block from ``ShardedTensor``s or sliced from whole tensors):
 
-* ``attention_tp`` — head TP where ``activation_hints`` switches it on
-  (``attn_q`` split over ``model``): model index ``j`` projects and
+* ``attention_tp`` — head TP over the devices ``head_devices`` picks
+  (the whole row where the query heads split evenly, ``activation_hints``'
+  rule; else its first device, whole): model index ``j`` projects and
   attends its own heads from its blocks of ``wq/wk/wv`` (the KV heads
-  its query heads read), and the output projection is row-parallel,
-  then ``psum`` (``psum_rows``: in float32, rounded once);
+  its query heads read; for a cross-attention from the other sequence),
+  and the output projection is row-parallel, then ``psum``
+  (``psum_rows``: in float32, rounded once);
 * ``mlp_tp`` — column-parallel ``gate/up`` (``in``), row-parallel
   ``down`` (``out``), then ``psum``;
 * ``attention_decode_tp`` — one token against a KV cache split along
   its sequence over ``model``: column-parallel flat projections
   gathered, ``decode_attention_partial`` per cache block,
   ``combine_decode_partials`` over the blocks (the LSE combine),
-  row-parallel output.
+  row-parallel output;
+* ``attention_cached_tp`` — one token by head shard against a cache
+  every device reads whole (the local-attention ring, the encoder's
+  K/V): its query heads, its KV heads of the cache, row-parallel
+  output.
 """
 
 from __future__ import annotations
@@ -515,47 +521,70 @@ def kv_heads_of(cfg, lo: int, hi: int) -> tuple[int, int] | None:
     return lo // G, (hi - 1) // G + 1
 
 
+def head_devices(cfg, devs: list) -> list:
+    """The devices of a model row that run its attention: all of them, a
+    head shard each, where the query heads split evenly over them
+    (``activation_hints``' head TP), else the row's first, whole."""
+    return devs if cfg.q_heads() % len(devs) == 0 else devs[:1]
+
+
+def _kv_range(cfg, lo: int, hi: int) -> tuple[int, int]:
+    kr = kv_heads_of(cfg, lo, hi)
+    return kr if kr is not None else (0, cfg.n_kv_heads)
+
+
+def _local_kv(cfg, k, v, lo: int, hi: int):
+    """Query heads ``lo:hi``'s K/V: as projected where the grouping
+    splits with them, else each local query head's KV head repeated."""
+    if kv_heads_of(cfg, lo, hi) is not None:
+        return k, v
+    G = cfg.q_heads() // cfg.n_kv_heads
+    return (torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi],
+            torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi])
+
+
 def project_qkv_heads(p: dict, x: torch.Tensor, cfg, positions, lo: int,
-                      hi: int):
+                      hi: int, kv_x: torch.Tensor | None = None):
     """Query heads ``lo:hi`` of ``project_qkv`` and the KV heads they
-    read -> (q [B,S,hi-lo,hd], k, v [B,S,n_kv_loc,hd], (klo, khi)): the
+    read -> (q [B,S,hi-lo,hd], k, v [B,Skv,n_kv_loc,hd], (klo, khi)): the
     KV heads' range (the whole, repeated per query head, where the
-    grouping does not split, ``kv_heads_of``)."""
+    grouping does not split, ``kv_heads_of``).  ``kv_x``: the sequence
+    K/V are projected from (a cross-attention's), else ``x``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    kv_x = x if kv_x is None else kv_x
     q = dense_cols(p["q"], x, lo * hd, hi * hd).reshape(B, S, hi - lo, hd)
-    kr = kv_heads_of(cfg, lo, hi)
-    klo, khi = kr if kr is not None else (0, cfg.n_kv_heads)
-    k = dense_cols(p["k"], x, klo * hd, khi * hd).reshape(B, S, -1, hd)
-    v = dense_cols(p["v"], x, klo * hd, khi * hd).reshape(B, S, -1, hd)
+    klo, khi = _kv_range(cfg, lo, hi)
+    k = dense_cols(p["k"], kv_x, klo * hd, khi * hd).reshape(
+        B, kv_x.shape[1], -1, hd)
+    v = dense_cols(p["v"], kv_x, klo * hd, khi * hd).reshape(
+        B, kv_x.shape[1], -1, hd)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v, (klo, khi)
 
 
-def attention_tp(p: dict, xs: list, cfg, positions: list, devs: list, *,
-                 causal: bool = True, window: int = 0, train: bool = False):
-    """Head-TP self-attention (sequence form) over one model row
-    ``devs`` -> (the attention block's output on every device, each
-    device's (k, v, (klo, khi)) for the cache).  Model index ``j`` runs
-    query heads ``split_range(Hq, M, j)`` through ``attention`` (the
-    hand-written kernel when serving on the card), then its rows of the
-    output projection; the partials are ``psum``med and the bias added
-    once."""
+def attention_tp(p: dict, xs: list, cfg, positions: list | None,
+                 devs: list, *, causal: bool = True, window: int = 0,
+                 train: bool = False, kv_xs: list | None = None):
+    """Head-TP attention (sequence form) over the model devices ``devs``
+    -> (the attention block's output on every device, each device's (k,
+    v, (klo, khi)) for the cache).  Model index ``j`` runs query heads
+    ``split_range(Hq, M, j)`` through ``attention`` (the hand-written
+    kernel when serving on the card), then its rows of the output
+    projection; the partials are ``psum``med and the bias added once.
+    ``kv_xs[j]``: the sequence a cross-attention's K/V come from, on
+    ``devs[j]``; ``positions`` (``None`` where no RoPE reads them)."""
     M = len(devs)
     hd = cfg.head_dim
     partials, kvs = [], []
     for j, x in enumerate(xs):
         lo, hi = split_range(cfg.q_heads(), M, j)
-        q, k, v, kr = project_qkv_heads(p, x, cfg, positions[j], lo, hi)
-        if kv_heads_of(cfg, lo, hi) is None:
-            # the grouping splits: each local query head gets its KV head
-            G = cfg.q_heads() // cfg.n_kv_heads
-            ka = torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi]
-            va = torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi]
-        else:
-            ka, va = k, v
+        q, k, v, kr = project_qkv_heads(
+            p, x, cfg, None if positions is None else positions[j], lo, hi,
+            None if kv_xs is None else kv_xs[j])
+        ka, va = _local_kv(cfg, k, v, lo, hi)
         a = attention(q, ka, va, cfg, causal=causal, window=window,
                       train=train)
         B, S = a.shape[:2]
@@ -563,6 +592,41 @@ def attention_tp(p: dict, xs: list, cfg, positions: list, devs: list, *,
                                    hi * hd))
         kvs.append((k, v, kr))
     return add_bias(p["o"], psum_rows(partials, devs)), kvs
+
+
+def gathered_cols(p: dict, xs: list, n: int, devs: list) -> list:
+    """``dense(p, x)`` [..., n] on every device: column-parallel (model
+    index ``j`` computes columns ``split_range(n, M, j)``), then
+    ``all_gather``."""
+    M = len(devs)
+    return spmd.all_gather([dense_cols(p, x, *split_range(n, M, j))
+                            for j, x in enumerate(xs)], -1, devs)
+
+
+def attention_cached_tp(p: dict, xs: list, cfg, devs: list,
+                        positions: list | None, kv) -> list:
+    """One token's attention by head shard against a cache every device
+    reads whole: model index ``j`` projects its query heads (RoPE at
+    ``positions[j]``), ``kv(j, klo, khi)`` gives its KV heads of the
+    cache on ``devs[j]`` and their valid mask ([B, S] bool), it attends
+    (``decode_attention``) and computes its rows of the output
+    projection; ``psum``, the bias once -> the output [B, 1, d] on every
+    device."""
+    M = len(devs)
+    hd = cfg.head_dim
+    partials = []
+    for j, x in enumerate(xs):
+        B = x.shape[0]
+        lo, hi = split_range(cfg.q_heads(), M, j)
+        q = dense_cols(p["q"], x, lo * hd, hi * hd).reshape(B, 1, hi - lo, hd)
+        if cfg.pos == "rope":
+            q = rope(q, positions[j], cfg.rope_theta)
+        kc, vc, valid = kv(j, *_kv_range(cfg, lo, hi))
+        kc, vc = _local_kv(cfg, kc, vc, lo, hi)
+        a = decode_attention(q[:, 0], kc, vc, valid, x.dtype)
+        partials.append(dense_rows(p["o"], a.reshape(B, 1, -1), lo * hd,
+                                   hi * hd))
+    return add_bias(p["o"], psum_rows(partials, devs))
 
 
 def attention_decode_tp(p: dict, xs: list, cfg, lens: list, devs: list,
@@ -579,11 +643,9 @@ def attention_decode_tp(p: dict, xs: list, cfg, lens: list, devs: list,
     M = len(devs)
     hd, Hq, Hkv = cfg.head_dim, cfg.q_heads(), cfg.n_kv_heads
     B = xs[0].shape[0]
-
-    def flat(name, n):
-        return spmd.all_gather([dense_cols(p[name], x, *split_range(
-            n, M, j)) for j, x in enumerate(xs)], -1, devs)
-    qs, ks, vs = flat("q", Hq * hd), flat("k", Hkv * hd), flat("v", Hkv * hd)
+    qs = gathered_cols(p["q"], xs, Hq * hd, devs)
+    ks = gathered_cols(p["k"], xs, Hkv * hd, devs)
+    vs = gathered_cols(p["v"], xs, Hkv * hd, devs)
     os_, ms, ls = [], [], []
     for j, dev in enumerate(devs):
         pos = lens[j][:, None]

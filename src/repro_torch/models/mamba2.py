@@ -17,6 +17,20 @@ Decode is the O(1)-state single-step recurrence.
 
 Layout: x is split into ``nh`` heads of ``hp = ssm_head_dim``; the state
 is ``[B, nh, hp, N]``.
+
+Head-sharded forms (``ssd_tp``, ``ssd_decode_tp``; a model row's devices
+``devs``, the reference's layout: ``in_z``/``in_x`` by column,
+``norm.scale`` and ``out`` by row over ``model``, the SSD activation and
+state by head): model index ``j`` owns heads ``split_range(nh, M, j)``
+and their ``hp`` channels each.  It projects its columns of ``z`` and
+``x`` and the whole ``B``, ``C`` and its heads' ``dt`` (replicated
+weights), convolves its ``x`` channels and the whole ``B``/``C``, runs the
+SSD on its heads (``ssd_intra`` once per head shard on the card), then
+the gated RMSNorm, whose mean square is over all of ``di``: each shard's
+float32 sum of squares is ``psum``med before the scale.  Its rows of
+``out`` give a partial, ``psum``med (``psum_rows``).  The conv state is
+replicated, as the reference lays it out: each device's last ``W - 1``
+rows of its ``x`` channels are gathered.
 """
 
 from __future__ import annotations
@@ -26,8 +40,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import piece
 from repro_torch.kernels.ssd.ops import ssd_chunked
-from repro_torch.models.layers import apply_norm, dense, dense_spec, remat
+from repro_torch.models.layers import (add_bias, apply_norm, dense,
+                                       dense_cols, dense_rows, dense_spec,
+                                       psum_rows, remat, split_range)
 from repro_torch.models.params import LeafSpec, ones, zeros
 
 F32 = torch.float32
@@ -209,3 +227,166 @@ def ssd_decode_step(p: dict, x: torch.Tensor, cfg, state):
     y = apply_norm(p["norm"], y.to(x.dtype), "rmsnorm")
     out = dense(p["out"], y)
     return out, {"ssm": h, "conv": window[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# Head-sharded forms (module docstring).  ``xs[j]`` is model index ``j``'s
+# input, whole, on ``devs[j]``; a state is {"ssm": its heads [B,nh_j,hp,N],
+# "conv": the whole conv state [B,W-1,di+2N]} on its device.
+
+RMS_EPS = 1e-6     # ``apply_norm``'s
+
+
+def _shard(cfg, M: int, j: int):
+    """Model index ``j``'s heads ``(lo, hi)`` and channels ``(clo, chi)``."""
+    hp = cfg.ssm_head_dim
+    lo, hi = split_range(dims(cfg)[1], M, j)
+    return lo, hi, lo * hp, hi * hp
+
+
+def _project_shard(p, x, cfg, lo, hi, clo, chi):
+    """``_project`` on one shard -> z [B,S,cw], conv input [B,S,cw+2N]
+    (its x channels, then B and C), dt [B,S,hi-lo] (f32)."""
+    N = cfg.ssm_state
+    z = dense_cols(p["in_z"], x, clo, chi)
+    xi = dense_cols(p["in_x"], x, clo, chi)
+    bc = dense_cols(p["in_bc"], x, 0, 2 * N)
+    dt = dense_cols(p["in_dt"], x, lo, hi).to(F32)
+    dt = F.softplus(dt + piece(p["dt_bias"], x.device, [(lo, hi)]).to(F32))
+    return z, torch.cat([xi, bc], dim=-1), dt
+
+
+def _conv_shard(t, di: int, clo: int, chi: int):
+    """A shard's channels of a whole conv tensor (taps [W,ch], bias [ch],
+    state [B,W-1,ch]): its x channels, then B and C."""
+    return torch.cat([t[..., clo:chi], t[..., di:]], dim=-1)
+
+
+def _conv_state_whole(parts: list, cfg, devs: list) -> list:
+    """Each shard's conv rows [B,W-1,cw+2N] -> the whole conv state on every
+    device: the x channels gathered, B and C the device's own (every shard
+    computes the same)."""
+    N2 = 2 * cfg.ssm_state
+    xs = spmd.all_gather([c[..., :-N2] for c in parts], -1, devs)
+    return [torch.cat([x, c[..., -N2:]], dim=-1) for x, c in zip(xs, parts)]
+
+
+def _gated_norm_out(p, ys, zs, cfg, devs, dtype) -> list:
+    """The gated RMSNorm over all of ``di`` and the row-parallel output:
+    ``ys[j]``/``zs[j]`` [B,S,cw] -> the block's output on every device."""
+    di = dims(cfg)[0]
+    M = len(devs)
+    gs, sq = [], []
+    for y, z in zip(ys, zs):
+        # apply_norm reads y in the compute type, in float32
+        g = (y * F.silu(z.to(F32))).to(dtype).to(F32)
+        gs.append(g)
+        sq.append(torch.sum(g * g, dim=-1, keepdim=True))
+    tot = spmd.psum(sq, devs)
+    parts = []
+    for j, (g, t) in enumerate(zip(gs, tot)):
+        _, _, clo, chi = _shard(cfg, M, j)
+        scale = piece(p["norm"]["scale"], g.device, [(clo, chi)])
+        n = (g * torch.rsqrt(t / di + RMS_EPS) * scale).to(dtype)
+        parts.append(dense_rows(p["out"], n, clo, chi))
+    return add_bias(p["out"], psum_rows(parts, devs))
+
+
+def ssd_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
+           return_state: bool = False, train: bool = False):
+    """``apply_ssd`` by head shard over the model row ``devs`` -> the
+    block's output [B,S,d] on every device (+ each device's state with
+    ``return_state``); ``state0s[j]``: device ``j``'s state to continue
+    from; ``train`` takes the chunk scan."""
+    M = len(devs)
+    di, nh, hp, N = dims(cfg)
+    B, S0, _ = xs[0].shape
+    Q = min(cfg.ssm_chunk, S0)
+    S = -(-S0 // Q) * Q
+    nc = S // Q
+    W = p["conv_w"].shape[0]
+    ys, zs, states = [], [], []
+    for j, x in enumerate(xs):
+        dev = x.device
+        lo, hi, clo, chi = _shard(cfg, M, j)
+        nj, cw = hi - lo, chi - clo
+        if S != S0:
+            x = F.pad(x, (0, 0, 0, S - S0))
+        z, conv_in, dt = _project_shard(p, x, cfg, lo, hi, clo, chi)
+        if S != S0:
+            dt = dt * (torch.arange(S, device=dev) < S0).to(
+                dt.dtype)[None, :, None]
+        taps = _conv_shard(piece(p["conv_w"], dev, [(0, W)]), di, clo, chi)
+        bias = _conv_shard(piece(p["conv_b"], dev, [(0, di + 2 * N)]), di,
+                           clo, chi)
+        st = None if state0s is None else state0s[j]
+        if st is not None:
+            ext = torch.cat([_conv_shard(st["conv"], di, clo, chi), conv_in],
+                            dim=1)
+            conv_out = _conv(ext, taps, bias)[:, W - 1:, :]
+        else:
+            conv_out = _conv(conv_in, taps, bias)
+        xh = conv_out[..., :cw].reshape(B, S, nj, hp)
+        Bc = conv_out[..., cw: cw + N].to(F32)
+        Cc = conv_out[..., cw + N:].to(F32)
+        A = -torch.exp(piece(p["a_log"], dev, [(lo, hi)]).to(F32))
+        u = dt[..., None] * xh.to(F32)
+        cum = torch.cumsum((dt * A).reshape(B, nc, Q, nj), dim=2)
+        u_c = u.reshape(B, nc, Q, nj, hp)
+        B_cn, C_cn = Bc.reshape(B, nc, Q, N), Cc.reshape(B, nc, Q, N)
+        h0 = None if st is None else st["ssm"]
+        if train:
+            if h0 is None:
+                h0 = torch.zeros((B, nj, hp, N), dtype=F32, device=dev)
+            y, h_last = _chunk_scan(cum, u_c, B_cn, C_cn, h0)
+        else:
+            y, h_last = ssd_chunked(cum, u_c, B_cn, C_cn, h0)
+        y = y.reshape(B, S, nj, hp) + piece(p["d_skip"], dev, [(lo, hi)]).to(
+            F32)[:, None] * xh.to(F32)
+        ys.append(y.reshape(B, S, cw)[:, :S0])
+        zs.append(z[:, :S0])
+        states.append((h_last, conv_in[:, S0 - (W - 1): S0, :]))
+    outs = _gated_norm_out(p, ys, zs, cfg, devs, xs[0].dtype)
+    if not return_state:
+        return outs
+    convs = _conv_state_whole([c for _, c in states], cfg, devs)
+    return outs, [{"ssm": h, "conv": c} for (h, _), c in zip(states, convs)]
+
+
+def ssd_decode_tp(p: dict, xs: list, cfg, devs: list, states: list):
+    """``ssd_decode_step`` by head shard over ``devs``: ``xs[j]`` [B,1,d],
+    ``states[j]`` device ``j``'s state -> (the output [B,1,d] on every
+    device, the new states: fresh tensors)."""
+    M = len(devs)
+    di, nh, hp, N = dims(cfg)
+    B = xs[0].shape[0]
+    W = p["conv_w"].shape[0]
+    ys, zs, hs, windows = [], [], [], []
+    for j, (x, st) in enumerate(zip(xs, states)):
+        dev = x.device
+        lo, hi, clo, chi = _shard(cfg, M, j)
+        nj, cw = hi - lo, chi - clo
+        z, conv_in, dt = _project_shard(p, x, cfg, lo, hi, clo, chi)
+        window = torch.cat([_conv_shard(st["conv"], di, clo, chi), conv_in],
+                           dim=1)
+        taps = _conv_shard(piece(p["conv_w"], dev, [(0, W)]), di, clo, chi)
+        bias = _conv_shard(piece(p["conv_b"], dev, [(0, di + 2 * N)]), di,
+                           clo, chi)
+        cv = torch.einsum("bwc,wc->bc", window, taps.to(x.dtype))
+        cv = F.silu(cv + bias.to(x.dtype))
+        xh = cv[:, :cw].reshape(B, nj, hp).to(F32)
+        Bc, Cc = cv[:, cw: cw + N].to(F32), cv[:, cw + N:].to(F32)
+        A = -torch.exp(piece(p["a_log"], dev, [(lo, hi)]).to(F32))
+        a = torch.exp(dt[:, 0] * A)
+        u = dt[:, 0, :, None] * xh
+        h = (a[:, :, None, None] * st["ssm"]
+             + torch.einsum("bhp,bn->bhpn", u, Bc))
+        y = torch.einsum("bn,bhpn->bhp", Cc, h)
+        y = y + piece(p["d_skip"], dev, [(lo, hi)]).to(F32)[:, None] * xh
+        ys.append(y.reshape(B, 1, cw))
+        zs.append(z)
+        hs.append(h)
+        windows.append(window[:, 1:, :])
+    outs = _gated_norm_out(p, ys, zs, cfg, devs, xs[0].dtype)
+    convs = _conv_state_whole(windows, cfg, devs)
+    return outs, [{"ssm": h, "conv": c} for h, c in zip(hs, convs)]

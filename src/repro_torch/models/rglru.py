@@ -22,6 +22,17 @@ backward either, so the training route (``train=True``) runs the same
 passes out of place (``_linear_scan_train``) and launches no kernel.
 Decode is the single-step recurrence with an O(1) state.  The recurrence
 runs in float32.
+
+Channel-sharded forms (``rglru_tp``, ``rglru_decode_tp``; a model row's
+devices ``devs``, the reference's layout: every weight over ``mlp`` →
+``model``): model index ``j`` owns channels ``split_range(dr, M, j)``.  It
+projects its columns of both branches, convolves its channels, and
+computes its rows' partial of each gate's GEMM (``w_a``/``w_i`` are split
+by row, as ``spec_for`` uses an axis once); the partials are summed in
+float32 and each device keeps its own channels (``spmd.psum_scatter``).
+The scan runs on ``[B, S, dr/M]`` (one ``linear_scan`` launch a shard on
+the card), then its rows of ``out`` give a partial, ``psum``med.  The
+state (``h`` and the conv rows) stays split by channel.
 """
 
 from __future__ import annotations
@@ -29,8 +40,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import piece
 from repro_torch.kernels.rglru_scan.scan import linear_scan
-from repro_torch.models.layers import dense, dense_spec
+from repro_torch.models.layers import (add_bias, dense, dense_cols,
+                                       dense_rows, dense_spec, psum_rows,
+                                       split_range)
 from repro_torch.models.params import LeafSpec, zeros
 
 RGLRU_C = 8.0
@@ -73,9 +88,13 @@ def _gates(p: dict, u: torch.Tensor):
     rounding there (e^-20 ~ 2e-9 relative), and the init draws Lambda in
     [2.2, 6.9] (``models/params.py``), far below the threshold."""
     uf = u.float()
-    r = torch.sigmoid(dense(p["w_a"], uf))
-    i = torch.sigmoid(dense(p["w_i"], uf))
-    log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
+    return _gate_values(torch.sigmoid(dense(p["w_a"], uf)),
+                        torch.sigmoid(dense(p["w_i"], uf)), p["lam"], uf)
+
+
+def _gate_values(r, i, lam, uf):
+    """The decay and gated input from the gates ``r``, ``i`` (float32)."""
+    log_a = -RGLRU_C * F.softplus(lam.float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
     return a, gated
@@ -147,3 +166,95 @@ def rglru_decode_step(p: dict, x: torch.Tensor, cfg, state):
     h = a[:, 0] * h_prev + b[:, 0]
     y = dense(p["out"], (gate[:, 0].float() * h).to(x.dtype))
     return y[:, None, :], (h, window[:, 1:, :])
+
+
+# ---------------------------------------------------------------------------
+# Channel-sharded forms (module docstring).  ``xs[j]`` is model index
+# ``j``'s input, whole, on ``devs[j]``; its state is {"h": [B,dr_j]
+# float32, "conv": [B,W-1,dr_j]}, its channels only.
+
+
+def _gates_tp(p: dict, us: list, devs: list) -> list:
+    """``_gates`` over the row: ``us[j]`` device ``j``'s channels of u ->
+    [(a, gated)] of its channels, contiguous (``linear_scan`` takes no
+    strided tensor)."""
+    M, dr = len(devs), p["lam"].shape[0]
+    ufs = [u.float() for u in us]
+
+    def gate(w):
+        return spmd.psum_scatter([dense_rows(p[w], uf, *split_range(
+            dr, M, j)) for j, uf in enumerate(ufs)], -1, devs)
+    out = []
+    for j, (r, i, uf) in enumerate(zip(gate("w_a"), gate("w_i"), ufs)):
+        lam = piece(p["lam"], uf.device, [split_range(dr, M, j)])
+        a, b = _gate_values(torch.sigmoid(r), torch.sigmoid(i), lam, uf)
+        out.append((a.contiguous(), b.contiguous()))
+    return out
+
+
+def _branches(p: dict, x: torch.Tensor, lo: int, hi: int):
+    """Channels ``lo:hi`` of the gate branch and of ``in_x``'s output, and
+    the conv taps and bias of those channels."""
+    gate = F.gelu(dense_cols(p["in_gate"], x, lo, hi), approximate="tanh")
+    W = p["conv_w"].shape[0]
+    return (gate, dense_cols(p["in_x"], x, lo, hi),
+            piece(p["conv_w"], x.device, [(0, W), (lo, hi)]),
+            piece(p["conv_b"], x.device, [(lo, hi)]))
+
+
+def _out_tp(p: dict, gates: list, hs: list, xs: list, devs: list) -> list:
+    """Row-parallel ``out`` over the shards' gated states, ``psum``."""
+    M, dr = len(devs), p["lam"].shape[0]
+    return add_bias(p["out"], psum_rows(
+        [dense_rows(p["out"], (g.float() * h).to(x.dtype),
+                    *split_range(dr, M, j))
+         for j, (g, h, x) in enumerate(zip(gates, hs, xs))], devs))
+
+
+def rglru_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
+             return_state: bool = False, train: bool = False):
+    """``apply_rglru`` by channel shard over the model row ``devs`` -> the
+    block's output [B,S,d] on every device (+ each device's state with
+    ``return_state``); ``state0s[j]``: device ``j``'s state to continue
+    from (``apply_rglru``'s ``h0`` and ``conv0``)."""
+    M, dr = len(devs), cfg.d_model
+    W = cfg.rglru_conv_width
+    gates, u_ins, us = [], [], []
+    for j, x in enumerate(xs):
+        gate, u_in, w, b = _branches(p, x, *split_range(dr, M, j))
+        if state0s is not None:
+            ext = torch.cat([state0s[j]["conv"], u_in], dim=1)
+            u = _causal_depthwise_conv(ext, w, b)[:, W - 1:]
+        else:
+            u = _causal_depthwise_conv(u_in, w, b)
+        gates.append(gate)
+        u_ins.append(u_in)
+        us.append(u)
+    scan = _linear_scan_train if train else _linear_scan
+    hs = [scan(a, b, None if state0s is None else state0s[j]["h"])
+          for j, (a, b) in enumerate(_gates_tp(p, us, devs))]
+    outs = _out_tp(p, gates, hs, xs, devs)
+    if return_state:
+        return outs, [{"h": h[:, -1, :], "conv": u[:, -(W - 1):, :]}
+                      for h, u in zip(hs, u_ins)]
+    return outs
+
+
+def rglru_decode_tp(p: dict, xs: list, cfg, devs: list, states: list):
+    """``rglru_decode_step`` by channel shard over ``devs``: ``xs[j]``
+    [B,1,d], ``states[j]`` device ``j``'s state -> (the output [B,1,d] on
+    every device, the new states: fresh tensors)."""
+    M, dr = len(devs), cfg.d_model
+    gates, us, windows = [], [], []
+    for j, (x, st) in enumerate(zip(xs, states)):
+        gate, u_new, w, b = _branches(p, x, *split_range(dr, M, j))
+        window = torch.cat([st["conv"], u_new], dim=1)
+        u = torch.einsum("bwd,wd->bd", window, w.to(x.dtype))
+        us.append((u + b.to(x.dtype))[:, None, :])
+        gates.append(gate[:, 0])
+        windows.append(window[:, 1:, :])
+    hs = [a[:, 0] * st["h"] + b[:, 0] for (a, b), st in
+          zip(_gates_tp(p, us, devs), states)]
+    outs = _out_tp(p, gates, hs, xs, devs)
+    return [y[:, None, :] for y in outs], [{"h": h, "conv": c}
+                                           for h, c in zip(hs, windows)]

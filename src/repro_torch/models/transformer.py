@@ -37,21 +37,29 @@ whole tensors) and every entry point runs its mesh form.  The batch
 splits into ``R`` row blocks over the data axes and each block runs on
 a row of ``M`` devices along ``model`` (``Hints.grid``).  The layer loop
 reads one layer's blocks at a time — under ``train`` inside the
-group's remat, so a replica holds at most one layer's gathered weights
-and the backward reads them again.  ``ATTN`` and ``MOE`` blocks take the
-tensor-parallel forms of ``models/layers.py`` (head TP where the hints
-switch it on, else attention on the gathered weights; the MLP always)
-and MoE its expert-parallel dispatch (``models/moe.py``); the
-embedding and the serving logits are vocab-parallel.  ``SSM``,
-``RECURRENT`` and ``LOCAL_ATTN`` blocks — the reference's explicit code
-has no sharded form of their mixers — compute on their layer's gathered
-weights, a replica at a time, with the same values.  The loss reduces
-the NLL sums and label counts over the replicas separately (the global
-mean).  Prefill writes each attention layer's K/V cache in
-``cache_seq`` blocks over ``model`` (the whole rows of every KV head,
+group's remat, so the backward reads them again.  Every block kind runs
+in the layout the reference gives it through its parameters' logical
+axes: ``ATTN``, ``MOE`` and ``LOCAL_ATTN`` attention by head shard
+(``layers.attention_tp``, the window passed on; where the query heads
+do not split over ``model``, whole on the row's first device,
+``layers.head_devices``), the MLP column- then row-parallel
+(``mlp_tp``) and MoE its expert-parallel dispatch (``models/moe.py``);
+``SSM`` by head shard (``mamba2.ssd_tp``) and ``RECURRENT``'s RG-LRU by
+channel shard (``rglru.rglru_tp``), where the model size divides the
+heads or the channels (``spec_for`` splits the weights then; where it
+does not, it replicates them over ``model`` and the block runs whole on
+the row's first device).  The embedding and the serving logits are
+vocab-parallel.  The loss reduces the NLL sums and label counts over
+the replicas separately (the global mean).  The prefill cache comes out
+in ``spec_for``'s layout of ``cache_spec``: each attention layer's K/V
+in ``cache_seq`` blocks over ``model`` (the whole rows of every KV head,
 from the devices that projected them; ``max_len`` rounded up to a
-multiple of the model size); ``decode_fn`` attends each block
-and LSE-combines them (``attention_decode_tp``).
+multiple of the model size), which ``decode_fn`` attends block by block
+and LSE-combines (``attention_decode_tp``); the SSM state by head and
+the RG-LRU state by channel, each device's own; the local-attention
+ring and the SSM's conv rows replicated over ``model``, one master per
+batch block on its row's first device, read where used (the ring by
+head shard, ``attention_cached_tp``) and written there once a step.
 
 In place: ``decode_fn`` writes each layer's new K/V row (and ring
 position) into the cache it is given (the reference's ``.at[].set``
@@ -70,25 +78,29 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (NamedSharding, P,
-                                              ShardedTensor, is_sharded,
-                                              piece, whole)
+                                              ShardedTensor, cache_leaf_spec,
+                                              is_sharded, piece, whole)
 from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
                                        apply_norm, attention,
+                                       attention_cached_tp,
                                        attention_decode_tp, attention_spec,
                                        attention_tp, decode_attention,
-                                       dense, layernorm_spec, mlp_spec,
-                                       mlp_tp, project_qkv, remat,
-                                       rmsnorm_spec, sinusoidal_rows,
+                                       dense, gathered_cols, head_devices,
+                                       layernorm_spec, mlp_spec, mlp_tp,
+                                       project_qkv, remat, rmsnorm_spec,
+                                       rope, sinusoidal_rows,
                                        sinusoidal_table, split_range)
 from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
-                                       mamba2_spec, ssd_decode_step)
+                                       mamba2_spec, ssd_decode_step,
+                                       ssd_decode_tp, ssd_tp)
 from repro_torch.models.moe import apply_moe, moe_ep, moe_spec, uses_ep
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_leaves,
                                        tree_map)
 from repro_torch.models.rglru import (apply_rglru, rglru_decode_step,
-                                      rglru_spec)
+                                      rglru_decode_tp, rglru_spec,
+                                      rglru_tp)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -626,39 +638,138 @@ def _ffn_sharded(p, X2, kind, cfg, hints, grid, decode: bool = False):
     return [[y[r].to(d) for d in grid[r]] for r in range(R)], aux
 
 
+def _attn_rows(pa, pn, H, cfg, grid, positions, *, window: int = 0,
+               causal: bool = True, train: bool = False, kv_H=None):
+    """Pre-norm attention (weights ``pa``, norm ``pn``) with its residual
+    over the grid, by head shard over ``head_devices`` -> (H', each row's
+    ``attention_tp`` K/V).  ``kv_H``: the rows a cross-attention's K/V
+    come from; ``positions`` ``None`` where no RoPE reads them."""
+    R, M = grid.shape
+    out, kv_rows = [], []
+    for r in range(R):
+        devs = list(grid[r])
+        tp = head_devices(cfg, devs)
+        n = len(tp)
+        xs = [apply_norm(_whole_tree(pn, d), h, cfg.norm)
+              for h, d in zip(H[r][:n], tp)]
+        ys, kvs = attention_tp(
+            pa, xs, cfg, None if positions is None else positions[r][:n],
+            tp, causal=causal, window=window, train=train,
+            kv_xs=None if kv_H is None else kv_H[r][:n])
+        if n < M:
+            ys = [ys[0].to(d) for d in devs]
+        out.append([h + y for h, y in zip(H[r], ys)])
+        kv_rows.append(kvs)
+    return out, kv_rows
+
+
+def _mlp_rows(p, H, cfg, grid):
+    """The pre-norm (``ln2``) MLP with its residual over the grid."""
+    out = []
+    for r, row in enumerate(H):
+        devs = list(grid[r])
+        xs = [apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
+              for h, d in zip(row, devs)]
+        out.append([h + y for h, y in zip(row, mlp_tp(p["mlp"], xs, cfg,
+                                                       devs))])
+    return out
+
+
+def _mixer_tp(kind, cfg, M: int) -> bool:
+    """Whether an ``SSM`` or ``RECURRENT`` block runs its sharded form:
+    the model size splits its heads or channels (``spec_for`` then splits
+    the weights and the state over ``model``)."""
+    if M < 2:
+        return False
+    if kind == BlockKind.SSM:
+        return ssm_dims(cfg)[1] % M == 0
+    return cfg.d_model % M == 0
+
+
+def _mixer_forms(kind, p):
+    """(the norm, the mixer's params, its sequence form, its decode form)
+    of an ``SSM`` or ``RECURRENT`` block."""
+    if kind == BlockKind.SSM:
+        return p["ln"], p["ssm"], ssd_tp, ssd_decode_tp
+    return p["ln1"], p["rglru"], rglru_tp, rglru_decode_tp
+
+
+def _mixer_cache(states: list, kind, cfg, hints: Hints) -> dict:
+    """Each row's per-device mixer states -> the cache entry of
+    ``ShardedTensor``s in ``spec_for``'s layout (``block_cache_spec``):
+    a leaf split over ``model`` from every device's block in grid order,
+    a replicated one from each row's first device."""
+    B = sum(next(iter(row[0].values())).shape[0] for row in states)
+    out = {}
+    for k, s in block_cache_spec(cfg, kind, B, 1).items():
+        spec = cache_leaf_spec(s, hints.mesh, hints.dp())
+        masters = ([st[k] for row in states for st in row]
+                   if "model" in spec else [row[0][k] for row in states])
+        out[k] = _sharded_leaf(hints.mesh, spec, s.shape, masters)
+    return out
+
+
+def _mixer_states(cache, r: int, devs: list) -> list:
+    """Row ``r``'s per-device mixer states from the cache entry: a leaf
+    split over ``model`` gives each device its own master block, a
+    replicated one each device its batch rows (read from the row's
+    master)."""
+    M = len(devs)
+    out = [{} for _ in devs]
+    for k, x in cache.items():
+        for j, dev in enumerate(devs):
+            if "model" in x.sharding.spec:
+                out[j][k] = x[r * M + j]
+            else:
+                n = x.shape[0] // len(x)
+                out[j][k] = piece(x, dev, [(r * n, (r + 1) * n)])
+    return out
+
+
 def _block_sharded(p, H, kind, cfg, hints, grid, positions,
                    collect_cache: bool, max_len: int, train: bool):
     """One block over the grid -> (H', aux, cache entry | None)."""
     R, M = grid.shape
     H = [list(row) for row in H]
-    if kind in (BlockKind.ATTN, BlockKind.MOE):
-        kv_rows = []
-        for r in range(R):
-            devs = list(grid[r])
-            xs = [apply_norm(_whole_tree(p["ln1"], d), h, cfg.norm)
-                  for h, d in zip(H[r], devs)]
-            if hints.head_tp():
-                outs, kvs = attention_tp(p["attn"], xs, cfg, positions[r],
-                                         devs, train=train)
-            else:
-                pa = _whole_tree(p["attn"], devs[0])
-                q, k, v = project_qkv(pa, xs[0], cfg, positions[r][0])
-                a = attention(q, k, v, cfg, train=train)
-                o = dense(pa["o"], a.reshape(*a.shape[:2], -1))
-                outs = [o.to(d) for d in devs]
-                kvs = [(k, v, (0, cfg.n_kv_heads))]
-            H[r] = [h + o for h, o in zip(H[r], outs)]
-            kv_rows.append(kvs)
+    dp = hints.dp()
+    aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
+    cache = None
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.LOCAL_ATTN):
+        window = cfg.window if kind == BlockKind.LOCAL_ATTN else 0
+        H, kv_rows = _attn_rows(p["attn"], p["ln1"], H, cfg, grid,
+                                positions, window=window, train=train)
         X2 = [[apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
                for h, d in zip(H[r], grid[r])] for r in range(R)]
         ys, aux = _ffn_sharded(p, X2, kind, cfg, hints, grid)
         H = [[h + y for h, y in zip(H[r], ys[r])] for r in range(R)]
-        cache = (_attn_cache_sharded(kv_rows, hints, grid, max_len)
-                 if collect_cache else None)
+        if collect_cache and kind == BlockKind.LOCAL_ATTN:
+            S = kv_rows[0][0][0].shape[1]
+            cache = _rows_sharded([_attn_cache_from_prefill(
+                *_kv_blocks(kv_rows[r], grid[r, 0], 0, S, S), kind, cfg,
+                max_len) for r in range(R)], hints)
+        elif collect_cache:
+            cache = _attn_cache_sharded(kv_rows, hints, grid, max_len)
         return H, aux, cache
-    # no sharded form of the mixer: the layer's weights gathered, a
-    # replica at a time
-    aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
+    if _mixer_tp(kind, cfg, M):
+        ln, mixer, form, _ = _mixer_forms(kind, p)
+        states = []
+        for r in range(R):
+            devs = list(grid[r])
+            xs = [apply_norm(_whole_tree(ln, d), h, cfg.norm)
+                  for h, d in zip(H[r], devs)]
+            ys = form(mixer, xs, cfg, devs, return_state=collect_cache,
+                      train=train)
+            if collect_cache:
+                ys, st = ys
+                states.append(st)
+            H[r] = [h + y for h, y in zip(H[r], ys)]
+        if kind == BlockKind.RECURRENT:
+            H = _mlp_rows(p, H, cfg, grid)
+        if collect_cache:
+            cache = _mixer_cache(states, kind, cfg, hints)
+        return H, aux, cache
+    # the model size splits neither the heads nor the channels: the
+    # weights are replicated over ``model``, the block runs whole
     entries = []
     for r in range(R):
         devs = list(grid[r])
@@ -672,26 +783,81 @@ def _block_sharded(p, H, kind, cfg, hints, grid, positions,
                     else None)
 
 
+def _ring_decode(p, xs, cfg, devs, lens: list, ring: dict, r: int):
+    """A ``LOCAL_ATTN`` block's attention for one token on one row: the
+    new K/V row (column-parallel, gathered) and its position written into
+    the ring's masters (batch block ``r``, on ``devs[0]``), then every
+    device reads the ring and attends its heads (``attention_cached_tp``)
+    -> the output on every device of ``devs``."""
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    B = xs[0].shape[0]
+    k = gathered_cols(p["k"], xs, Hkv * hd, devs)[0].reshape(B, 1, Hkv, hd)
+    v = gathered_cols(p["v"], xs, Hkv * hd, devs)[0].reshape(B, 1, Hkv, hd)
+    if cfg.pos == "rope":
+        k = rope(k, lens[0][:, None], cfg.rope_theta)
+    kc, vc, pc = ring["k"][r], ring["v"][r], ring["pos"][r]
+    W = cfg.window
+    at = (lens[0] % W).long()
+    rows = torch.arange(B, device=pc.device)
+    pc[rows, at] = lens[0].to(pc.dtype)
+    kc[rows, at] = k[:, 0].to(kc.dtype)
+    vc[rows, at] = v[:, 0].to(vc.dtype)
+
+    def kv(j, klo, khi):
+        dev = devs[j]
+        rng = [(r * B, (r + 1) * B), (0, W), (klo, khi)]
+        pos = piece(ring["pos"], dev, rng[:1])
+        ln = lens[j][:, None]
+        return (piece(ring["k"], dev, rng), piece(ring["v"], dev, rng),
+                (pos >= 0) & (pos >= ln - W + 1) & (pos <= ln))
+    return attention_cached_tp(p, xs, cfg, devs,
+                               [ln[:, None] for ln in lens], kv)
+
+
 def _block_decode_sharded(p, H, kind, cfg, hints, grid, cache, lens):
     """One block's decode step over the grid; writes ``cache`` (this
     layer's ``ShardedTensor`` views) in place -> H'."""
     R, M = grid.shape
     H = [list(row) for row in H]
-    if kind in (BlockKind.ATTN, BlockKind.MOE):
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.LOCAL_ATTN):
         for r in range(R):
             devs = list(grid[r])
             xs = [apply_norm(_whole_tree(p["ln1"], d), h, cfg.norm)
                   for h, d in zip(H[r], devs)]
             ls = [lens[r].to(d) for d in devs]
-            outs = attention_decode_tp(
-                p["attn"], xs, cfg, ls, devs,
-                list(cache["k"][r * M:(r + 1) * M]),
-                list(cache["v"][r * M:(r + 1) * M]))
+            if kind == BlockKind.LOCAL_ATTN:
+                n = len(head_devices(cfg, devs))
+                outs = _ring_decode(p["attn"], xs[:n], cfg, devs[:n],
+                                    ls[:n], cache, r)
+                outs = outs + [outs[0].to(d) for d in devs[n:]]
+            else:
+                outs = attention_decode_tp(
+                    p["attn"], xs, cfg, ls, devs,
+                    list(cache["k"][r * M:(r + 1) * M]),
+                    list(cache["v"][r * M:(r + 1) * M]))
             H[r] = [h + o for h, o in zip(H[r], outs)]
         X2 = [[apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
                for h, d in zip(H[r], grid[r])] for r in range(R)]
         ys, _ = _ffn_sharded(p, X2, kind, cfg, hints, grid, decode=True)
         return [[h + y for h, y in zip(H[r], ys[r])] for r in range(R)]
+    if _mixer_tp(kind, cfg, M):
+        ln, mixer, _, form = _mixer_forms(kind, p)
+        for r in range(R):
+            devs = list(grid[r])
+            xs = [apply_norm(_whole_tree(ln, d), h, cfg.norm)
+                  for h, d in zip(H[r], devs)]
+            ys, new = form(mixer, xs, cfg, devs, _mixer_states(cache, r,
+                                                               devs))
+            for k, x in cache.items():   # into the masters, in place
+                if "model" in x.sharding.spec:
+                    for j, st in enumerate(new):
+                        x[r * M + j].copy_(st[k])
+                else:
+                    x[r].copy_(new[0][k])
+            H[r] = [h + y for h, y in zip(H[r], ys)]
+        if kind == BlockKind.RECURRENT:
+            H = _mlp_rows(p, H, cfg, grid)
+        return H
     for r in range(R):
         devs = list(grid[r])
         cr = tree_map(lambda x: x[r], cache, is_leaf=is_sharded)

@@ -729,6 +729,8 @@ def test_cuda_flash_attention_rejects_misaligned(cuda):
     # and Q = 70 (no row or column tile divides it) at mamba2's widths
     (2, 8, 256, 64, 64, 128), (1, 2, 256, 4, 128, 128),
     (1, 2, 256, 4, 64, 64), (1, 2, 70, 4, 64, 128),
+    # a head shard of mamba2-1.3b's prefill on a 2x4 mesh: 16 of 64 heads
+    (1, 8, 256, 16, 64, 128),
 ])
 def test_cuda_ssd_intra_equals_plain(cuda, b, nc, Q, nh, hp, N):
     """Within 1e-4 of max|y| and max|state| (sums over Q and N
@@ -785,8 +787,9 @@ def scan_reference(a, b, h0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,D", [
     (1, 1, 32), (2, 7, 40), (2, 127, 33), (2, 129, 96), (1, 1000, 64),
-    # recurrentgemma-9b's prefill: 2 prompts of 4096 tokens, d = 4096
-    (2, 4096, 4096)])
+    # recurrentgemma-9b's prefill: 2 prompts of 4096 tokens, d = 4096,
+    # and a channel shard of it on a 2x4 mesh: one prompt, 1024 channels
+    (2, 4096, 4096), (1, 4096, 1024)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_cuda_linear_scan_equals_plain(cuda, B, S, D, with_h0):
     """Within 1e-5 of max(1, max|h|) of the plain passes on the card and
@@ -1185,13 +1188,15 @@ def cuda_mesh(cuda, shape=(2, 4), axes=("data", "model")):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
-                                  "mamba2-1.3b"])
+                                  "mamba2-1.3b", "recurrentgemma-9b"])
 def test_cuda_sharded_forms_equal_cpu(cuda, arch):
     """A smoke model on a 2x4 mesh over ``[cuda:0] * 8`` (float32, B 4,
     64 positions): its loss, prefill (the KV cache split over ``model``)
     and two decode steps against the single-device model on the CPU on
     the same weights, within 1e-4 of the scale; the sharded prefill
-    launches its kernel on every head shard (``R * M`` a layer)."""
+    launches its kernels on every shard (``R * M`` a layer): attention
+    on every head shard, the SSD on every head shard, the RG-LRU scan on
+    every channel shard."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1224,9 +1229,13 @@ def test_cuda_sharded_forms_equal_cpu(cuda, arch):
             steps.append(logits)
         outs.append([x.float().cpu() for x in steps])
         if dev == cuda:
-            name = "ssd_intra" if cfg.family == "ssm" else "flash_attention"
-            per_layer = 2 if cfg.family == "ssm" else 8   # R or R * M
-            assert launched[name] == per_layer * cfg.n_layers
+            kinds = [k.value for k in cfg.block_kinds()]
+            per = {"ssd_intra": kinds.count("ssm"),
+                   "linear_scan": kinds.count("rglru"),
+                   "flash_attention": len(kinds) - kinds.count("ssm")
+                   - kinds.count("rglru")}
+            for name, n in per.items():   # R * M a layer
+                assert launched[name] == 8 * n, name
     for got, want in zip(*outs):
         assert float((got - want).abs().max()) <= 1e-4 * max(
             1.0, float(want.abs().max()))

@@ -29,7 +29,9 @@ tests:
   after 3 steps;
 * every smoke config's loss, prefill and decode steps on the mesh
   against its single-device run in float32, within 1e-5 of the scale
-  (the families without a sharded mixer run on gathered weights).
+  (every mixer in its sharded form: the SSD by head, the RG-LRU by
+  channel, local and enc-dec attention by head; the forms themselves
+  are held to the reference in ``tests/test_torch_mixer_tp.py``).
 """
 
 import dataclasses
