@@ -208,12 +208,18 @@ Phases, each fatal on failure:
    3e-3, the losses finite and the loss after the third update below
    the first; the layout's bytes of params and moments per mesh
    device and per card, the step times beside the single-device step's,
-   peak GB.  (2) ``yi-6b`` whole in the 16-bit store: the sharded
+   peak GB; over the first sharded gradients every block's residual
+   holds ``split_range(2048, 4, j)`` rows on model index ``j``
+   (``seq_rows``, ``MeshSpy``: the sequence-parallel layout) and no
+   whole read of a leaf split over ``model`` (``model_split_gathers``
+   0: the loss is vocab-parallel).  (2) ``yi-6b`` whole in the 16-bit
+   store: the sharded
    prefill (B 2 x 2048, the KV cache split over ``model``, 2053 rows
    padded to 2056) and 4 decode
    steps against the single-device run, logits within ``3e-2 * max(1,
    scale)``; ``flash_attention`` must launch once per head shard per
-   layer (8 x 32) on the sharded prefill, counted from 0.  (3)
+   layer (8 x 32) on the sharded prefill, counted from 0; its blocks'
+   ``seq_rows`` as in (1).  (3)
    ``moonshot-v1-16b-a3b`` at 2 of 48 layers, 64 experts (16 a shard),
    capacity factor E/k: the expert-parallel layer against the
    single-device ``apply_moe`` on one B 2 x 2048 input (``1e-3 *
@@ -245,7 +251,10 @@ Phases, each fatal on failure:
    from the single float32 logits than ``MIXER_BF16_RATIO`` times the
    single bf16 ones; the bf16 prefill's launches equal to
    ``mixer_launches`` (384 ``ssd_intra``, 208 ``linear_scan`` and 96
-   ``flash_attention``, whisper 16 and 64), counted from 0; no whole
+   ``flash_attention``, whisper 16 and 64), counted from 0; the bf16
+   prefill's ``seq_rows``: mamba2's and whisper's blocks their
+   ``split_range`` shares of 2048, 1500 (the encoder) and 432 rows,
+   recurrentgemma's (not sequence-parallel) the whole 4096; no whole
    read (``ShardedTensor.gather``) of a leaf split over ``model``; the
    cache's specs, the layout's bytes, the times beside the single
    device's, peak under 80 GB; each kernel timed at its shard's shape
@@ -271,8 +280,11 @@ Phases, each fatal on failure:
    on the production 16x16 mesh of fake devices for ``DRYRUN_CELLS``
    (yi-6b prefill_32k and decode_32k, mamba2-1.3b long_500k and the
    closure cell), all at once in children that touch no card, one line
-   each with the record's memory, roofline and bottleneck; a timed
-   ``dryrun_all`` line;
+   each with the record's memory, roofline, bottleneck and collectives
+   by kind; the yi-6b prefill must show a reduce-scatter (its
+   sequence-parallel residual) and a peak no higher than
+   ``DRYRUN_SP_PEAK``, and the decode and long cells their
+   ``DRYRUN_UNMOVED`` figures; a timed ``dryrun_all`` line;
 10. a ``{"kernels": [...]}`` line with every ported kernel's numbers
    (the fact kernels' launches counted over the engine, demand, serving,
    launcher, sharded and trainer phases; ``queued`` lists the kernels
@@ -3643,6 +3655,67 @@ def grad_gap(torch, got, want, device) -> float:
     return gap
 
 
+class MeshSpy:
+    """Within ``with``: each sequence form block's residual rows on the
+    model indices of the first batch block (``rows``: how often each
+    tuple came; a decoder LM's blocks, an enc-dec's after each MLP), and
+    each whole read of a leaf split over ``model`` (``gathers``, by its
+    spec)."""
+
+    def __init__(self):
+        self.rows: dict = {}
+        self.gathers: list = []
+
+    def __enter__(self):
+        from repro_torch.distributed.sharding import ShardedTensor
+        from repro_torch.models import encdec, transformer
+        block, mlp = transformer._block_sharded, encdec._mlp_rows
+        gather = ShardedTensor.gather
+
+        def add(H):
+            key = tuple(h.shape[1] for h in H[0])
+            self.rows[key] = self.rows.get(key, 0) + 1
+
+        def block_spy(*a, **k):
+            out = block(*a, **k)
+            add(out[0])
+            return out
+
+        def mlp_spy(*a, **k):
+            out = mlp(*a, **k)
+            add(out)
+            return out
+
+        def gather_spy(st, dev):
+            if any("model" in str(e) for e in st.sharding.spec):
+                self.gathers.append(list(map(str, st.sharding.spec)))
+            return gather(st, dev)
+        self._saved = [(transformer, "_block_sharded", block),
+                       (encdec, "_mlp_rows", mlp),
+                       (ShardedTensor, "gather", gather)]
+        transformer._block_sharded = block_spy
+        encdec._mlp_rows = mlp_spy
+        ShardedTensor.gather = gather_spy
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def seq_rows(self) -> list:
+        return [[list(k), n] for k, n in sorted(self.rows.items())]
+
+    def check(self, where: str, lengths, M: int, sp: bool) -> None:
+        """Every block held ``split_range(S, M, j)`` rows on model index
+        ``j`` (``sp``) or the whole ``S`` on each, for an ``S`` of
+        ``lengths``, and each of ``lengths`` was seen."""
+        want = {tuple(S * (j + 1) // M - S * j // M if sp else S
+                      for j in range(M)) for S in lengths}
+        if set(self.rows) != want:
+            fail(f"{where}: residual rows by model index "
+                 f"{self.seq_rows()}, expected {sorted(want)}")
+
+
 def shard_train(torch, seed: int, mesh, device) -> None:
     """FSDP+TP steps of yi-6b at 4 of 32 layers against the single-device
     step on the same weights and batch: the first step's gradients leaf
@@ -3668,7 +3741,8 @@ def shard_train(torch, seed: int, mesh, device) -> None:
     sparams = placed(params, single.spec(), mesh)
     torch.cuda.reset_peak_memory_stats()
     g0 = loss_and_grads(single, params, data)[2]
-    g1 = loss_and_grads(model, sparams, sdata)[2]
+    with MeshSpy() as spy:
+        g1 = loss_and_grads(model, sparams, sdata)[2]
     grad_err = grad_gap(torch, g1, g0, device)
     del g0, g1
     sstate = init_train_state(sparams)
@@ -3708,8 +3782,15 @@ def shard_train(torch, seed: int, mesh, device) -> None:
             "opt_state_bytes": layout_bytes({"m": sstate["opt"]["m"],
                                              "v": sstate["opt"]["v"]}),
             "step_ms": mesh_ms, "single_step_ms": single_ms,
+            "seq_rows": spy.seq_rows(),
+            "model_split_gathers": len(spy.gathers),
             "peak_device_gb": peak, "card": card_line()}
     print(json.dumps(line), flush=True)
+    spy.check("sharding train", [seq], mesh.shape["model"],
+              model.hints.seq_parallel())
+    if spy.gathers:
+        fail(f"sharding train: {len(spy.gathers)} whole reads of leaves "
+             f"split over model: {spy.gathers[:4]}")
     if not grad_err <= SHARD_GRAD_TOL:
         fail(f"sharding train: gradients off the single device by "
              f"{grad_err} of their scale")
@@ -3759,8 +3840,9 @@ def shard_serve(torch, seed: int, mesh, device) -> int:
             wants.append(want.float())
         del cache
         kernels.reset_counts()
-        (got, scache), mesh_ms = timed(torch, lambda: pre.prefill_fn(
-            sparams, toks[:, :seq], max_len))
+        with MeshSpy() as spy:
+            (got, scache), mesh_ms = timed(torch, lambda: pre.prefill_fn(
+                sparams, toks[:, :seq], max_len))
         torch.cuda.synchronize()
         launched = dict(kernels.LAUNCHES)
         gots = [got.float()]
@@ -3785,13 +3867,15 @@ def shard_serve(torch, seed: int, mesh, device) -> int:
             "logits_err": errs, "logits_bound": bounds,
             "flash_launches": launched["flash_attention"],
             "flash_wgmma_launches": launched["flash_attention_wgmma"],
-            "expected_launches": expect,
+            "expected_launches": expect, "seq_rows": spy.seq_rows(),
             "prefill_ms": mesh_ms, "single_prefill_ms": single_ms,
             "decode_ms": dec_ms,
             "params_bytes": layout_bytes(sparams),
             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
             "card": card_line()}
     print(json.dumps(line), flush=True)
+    spy.check("sharding serve", [seq], mesh.shape["model"],
+              pre.hints.seq_parallel())
     if not all(e <= b for e, b in zip(errs, bounds)):
         fail(f"sharding serve: logits off the single device: {errs}")
     if launched["flash_attention"] != expect:
@@ -4190,8 +4274,7 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import (ShardedTensor,
-                                                  activation_hints,
+    from repro_torch.distributed.sharding import (activation_hints,
                                                   is_sharded)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model, init_params
@@ -4207,6 +4290,7 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
             build_model(c, activation_hints(c, mesh, batch, "decode"))))
     single, sharded = models(cfg)
     single32, sharded32 = models(f32)
+    sp = activation_hints(cfg, mesh, batch, "prefill").seq_parallel()
     held = torch.cuda.memory_allocated() / 1e9
     params = init_params(single.spec(), seed, device=device,
                          store=cfg.dtype)
@@ -4224,17 +4308,9 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
     sparams = placed(params, single.spec(), mesh)
     del params
     torch.cuda.empty_cache()
-    gathered = []
-    gather = ShardedTensor.gather
-
-    def spy(self, dev):   # a whole leaf read on one device
-        if any("model" in str(e) for e in self.sharding.spec):
-            gathered.append(list(map(str, self.sharding.spec)))
-        return gather(self, dev)
-    ShardedTensor.gather = spy
-    try:
+    with MeshSpy() as every:   # whole reads over every sharded run
         kernels.reset_counts()   # the main path's run starts here
-        with torch.no_grad():
+        with torch.no_grad(), MeshSpy() as spy:
             (got, scache), mesh_ms = timed(torch, lambda: sharded.prefill_fn(
                 sparams, prompts, max_len, **extra))
         launched = dict(kernels.LAUNCHES)   # ... and ends here
@@ -4242,8 +4318,7 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
             torch, sharded, sparams, prompts, max_len, extra, toks)
         gots32 = serve_steps(torch, sharded32, sparams, prompts, max_len,
                              extra, toks)[0]
-    finally:
-        ShardedTensor.gather = gather
+    gathered = every.gathers
     del got
 
     def errs(a, b):
@@ -4265,6 +4340,7 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
             "launches": got_launches, "expected_launches": want_launches,
             "wgmma_launches": launched["flash_attention_wgmma"],
             "model_split_gathers": len(gathered),
+            "seq_rows": spy.seq_rows(),
             "cache_specs": sorted({str(tuple(x.sharding.spec)) for x in
                                    tree_leaves(scache, is_sharded)}),
             "prefill_ms": mesh_ms, "single_prefill_ms": single_ms,
@@ -4288,6 +4364,10 @@ def shard_mixer(torch, seed: int, arch: str, mesh_shape, batch: int,
     if gathered:
         fail(f"{where}: {len(gathered)} whole reads of leaves split over "
              f"model: {gathered[:4]}")
+    # the prompt's rows and whisper's encoder frames
+    spy.check(where, [seq] + [v.shape[1] for v in extra.values()
+                              if cfg.family == "encdec"],
+              mesh.shape["model"], sp)
     if peak >= 80:
         fail(f"{where}: peak device memory {peak} GB")
     rows = {k: {"launches": launched[k]} for k in ("ssd_intra",
@@ -4478,6 +4558,24 @@ DRYRUN_TIMEOUT = 400
 # the card's max_memory_allocated increment: the caching allocator rounds
 # each block up to 512 bytes and kernels' internal temporaries come on top
 DRYRUN_PEAK_BAND = (0.98, 1.10)
+# yi-6b prefill_32k with its residual sequence-parallel: at most the peak
+# bytes a device the whole residual took (6.90 GiB by ``python -m
+# repro_torch.launch.dryrun`` before the sequence split; 7.90 before a
+# block's attention half moved into ``_attn_rows``, whose return frees the
+# last row's normed input and output, 512 MiB each) ...
+DRYRUN_SP_PEAK = 7410712576
+# ... and the cells the sequence split does not reach, as they were
+# before it: peak bytes a device, each collective kind's bytes
+DRYRUN_UNMOVED = {
+    "yi-6b__decode_32k": {
+        "peak_bytes_per_device": 1193494792,
+        "collective_bytes": {"all-gather": 714424320.0,
+                             "all-reduce": 12713984.0, "copy": 15360000.0}},
+    "mamba2-1.3b__long_500k": {
+        "peak_bytes_per_device": 61065736,
+        "collective_bytes": {"all-gather": 223243600.0,
+                             "all-reduce": 397504.0, "copy": 4100.0}},
+}
 
 
 def dryrun_start(cells=DRYRUN_CELLS) -> list:
@@ -4537,6 +4635,25 @@ def dryrun_cells(procs, t0: float) -> list:
                   else {})}
         print(json.dumps(row), flush=True)
         rows.append(row)
+    by_cell = {r["cell"]: r for r in rows}
+    pre = by_cell.get("yi-6b__prefill_32k")
+    if pre is not None and not (
+            "reduce-scatter" in pre["collectives"]
+            and pre["memory"]["peak_bytes_per_device"] <= DRYRUN_SP_PEAK):
+        fail(f"dry run yi-6b prefill_32k: collectives "
+             f"{sorted(pre['collectives'])}, peak "
+             f"{pre['memory']['peak_bytes_per_device']} (at most "
+             f"{DRYRUN_SP_PEAK})")
+    for tag, want in DRYRUN_UNMOVED.items():
+        row = by_cell.get(tag)
+        if row is None:
+            continue
+        got = {"peak_bytes_per_device":
+               row["memory"]["peak_bytes_per_device"],
+               "collective_bytes": {k: c["bytes"] for k, c in
+                                    row["collectives"].items()}}
+        if got != want:
+            fail(f"dry run {tag}: {got}, before the sequence split {want}")
     return rows
 
 

@@ -37,8 +37,13 @@ logits vocab-parallel.  The cache's self-attention K/V are split along
 decode step attends them block by block (``attention_decode_tp``); the
 cross-attention's K/V are replicated over ``model`` (one master per
 batch block, on its row's first device), each head shard reading its
-own KV heads (``attention_cached_tp``).  The loss reduces the NLL sums
-and label counts over the replicas.
+own KV heads (``attention_cached_tp``).  Under sequence parallelism
+(train and prefill) the encoder's and the decoder's residuals hold each
+model index's ``split_range`` rows, as ``models/transformer.py``'s do,
+and each decoder layer all-gathers the encoder's output once for its
+cross-attention's K/V.  The loss is vocab-parallel over the tied
+embedding's rows (``transformer.chunked_ce_tp``) and reduces the NLL
+sums and label counts over the replicas.
 
 In place: ``decode_fn`` writes each layer's new K/V row into the cache
 it is given and returns that cache with ``lens`` advanced.  No remat
@@ -50,7 +55,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed import spmd
-from repro_torch.distributed.sharding import piece, whole
+from repro_torch.distributed.sharding import piece
 from repro_torch.models.config import ArchConfig, BlockKind
 from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
                                        apply_norm, attention,
@@ -58,19 +63,21 @@ from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
                                        attention_decode_tp, attention_spec,
                                        decode_attention, dense,
                                        head_devices, layernorm_spec,
-                                       mlp_spec, remat, sinusoidal_rows,
-                                       sinusoidal_table)
+                                       mlp_spec, remat, seq_gather,
+                                       sinusoidal_rows, sinusoidal_table,
+                                       split_range)
 from repro_torch.models.params import (DTYPES, LeafSpec, check_device,
                                        normal, stacked, tree_map)
 from repro_torch.models.transformer import (_attn_cache_from_prefill,
                                             _attn_cache_sharded,
                                             _attn_part, _attn_rows,
-                                            _embed_tokens, _embed_tp,
-                                            _kv_blocks, _layer, _logits_tp,
-                                            _mlp_rows, _rows, _rows_sharded,
-                                            _stack_sharded, _unstack,
-                                            _whole_tree, attn_decode,
-                                            chunked_ce)
+                                            _embed_seq, _embed_tokens,
+                                            _embed_tp, _kv_blocks, _layer,
+                                            _logits_tp, _mlp_rows, _rows,
+                                            _rows_sharded, _stack_sharded,
+                                            _unstack, _whole_tree,
+                                            attn_decode, chunked_ce,
+                                            chunked_ce_tp)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -185,17 +192,32 @@ class EncDecLM:
 
     def _encode_rows(self, params, frames, train: bool = False):
         """``encode`` over the grid -> each batch block's encoder output on
-        every device of its row."""
+        every device of its row (under sequence parallelism each device's
+        ``split_range`` rows of it, from its rows of ``frames``)."""
         cfg, grid = self.cfg, self.grid
-        R = grid.shape[0]
+        R, M = grid.shape
+        sp = self.hints.seq_parallel()
         dt = DTYPES[cfg.dtype]
-        H = [[_add_positions(_rows(frames, d, r, R).to(dt)) for d in grid[r]]
-             for r in range(R)]
+        if sp:
+            Se, n = frames.shape[1], frames.shape[0] // R
+            H = []
+            for r in range(R):
+                row = []
+                for j, d in enumerate(grid[r]):
+                    lo, hi = split_range(Se, M, j)
+                    x = piece(frames, d, [(r * n, (r + 1) * n),
+                                          (lo, hi)]).to(dt)
+                    row.append(x + sinusoidal_rows(
+                        torch.arange(lo, hi, device=d), x.shape[-1]).to(dt))
+                H.append(row)
+        else:
+            H = [[_add_positions(_rows(frames, d, r, R).to(dt))
+                  for d in grid[r]] for r in range(R)]
 
         def body(H, bp):
             H, _ = _attn_rows(bp["attn"], bp["ln1"], H, cfg, grid, None,
-                              causal=False, train=train)
-            return _mlp_rows(bp, H, cfg, grid)
+                              causal=False, train=train, sp=sp)
+            return _mlp_rows(bp, H, cfg, grid, sp)
 
         for bp in _unstack(params["enc_blocks"], cfg.n_enc_layers):
             H = remat(body, H, bp) if train else body(H, bp)
@@ -204,19 +226,26 @@ class EncDecLM:
     def _decoder_rows(self, params, tokens, E, collect_cache: bool = False,
                       max_len: int = 0, train: bool = False):
         """``_decoder_hidden`` over the grid against the encoder rows ``E``
-        -> (H after the final norm, the stacked cache layers | None)."""
+        -> (H after the final norm, the stacked cache layers | None); under
+        sequence parallelism ``E`` and ``H`` hold the sequence shards, and
+        the cross-attention's K/V source is ``E`` gathered, once a
+        layer."""
         cfg, grid, hints = self.cfg, self.grid, self.hints
         R = grid.shape[0]
-        H = [[_add_positions(h) for h in _embed_tp(
-            params, _rows(tokens, grid[r, 0], r, R), cfg, list(grid[r]))]
-            for r in range(R)]
+        sp = hints.seq_parallel()
+        H = [_embed_seq(params, _rows(tokens, grid[r, 0], r, R), cfg,
+                        list(grid[r]), sp=sp, positional=_add_positions)
+             for r in range(R)]
 
         def body(H, bp):
+            kv_H = [seq_gather(E[r], list(grid[r]), sp)[0]
+                    for r in range(R)]
             H, kv_self = _attn_rows(bp["attn"], bp["ln1"], H, cfg, grid,
-                                    None, train=train)
+                                    None, train=train, sp=sp)
             H, kv_x = _attn_rows(bp["xattn"], bp["lnx"], H, cfg, grid, None,
-                                 causal=False, train=train, kv_H=E)
-            return _mlp_rows(bp, H, cfg, grid), kv_self, kv_x
+                                 causal=False, train=train, kv_H=kv_H,
+                                 sp=sp)
+            return _mlp_rows(bp, H, cfg, grid, sp), kv_self, kv_x
 
         caches = []
         for bp in _unstack(params["dec_blocks"], cfg.n_layers):
@@ -225,7 +254,7 @@ class EncDecLM:
                 continue
             H, kv_self, kv_x = body(H, bp)
             if collect_cache:
-                Se = E[0][0].shape[1]
+                Se = kv_x[0][0][0].shape[1]
                 c = _attn_cache_sharded(kv_self, hints, grid, max_len)
                 c.update(_rows_sharded([dict(zip(("xk", "xv"), _kv_blocks(
                     kv_x[r], grid[r, 0], 0, Se, Se))) for r in range(R)],
@@ -241,10 +270,13 @@ class EncDecLM:
         H, _ = self._decoder_rows(params, batch["tokens"], E, train=True)
         tots, cnts = [], []
         for r in range(R):
-            dev = grid[r, 0]
-            t, c = chunked_ce(H[r][0], whole(params["embed"], dev).T,
-                              _rows(batch["labels"], dev, r, R),
-                              cfg.logit_chunk, cfg.vocab)
+            devs = list(grid[r])
+            # vocab-parallel over the tied embedding's rows
+            t, c = chunked_ce_tp(
+                H[r], params["embed"],
+                [_rows(batch["labels"], d, r, R) for d in devs],
+                cfg.logit_chunk, cfg.vocab, devs, True,
+                self.hints.seq_parallel())
             tots.append(t)
             cnts.append(c)
         devs = [self.device] * R
@@ -258,7 +290,10 @@ class EncDecLM:
         R = grid.shape[0]
         E = self._encode_rows(params, frames)
         H, layers = self._decoder_rows(params, tokens, E, True, max_len)
-        logits = torch.cat([_logits_tp(self, params, H[r][0][:, -1, :],
+        # the last position: on the last model index's shard under
+        # sequence parallelism
+        last = -1 if self.hints.seq_parallel() else 0
+        logits = torch.cat([_logits_tp(self, params, H[r][last][:, -1, :],
                                        list(grid[r])).to(self.device)
                             for r in range(R)], 0)
         S = tokens.shape[1]

@@ -36,6 +36,14 @@ block by block from ``ShardedTensor``s or sliced from whole tensors):
   (``psum_rows``: in float32, rounded once);
 * ``mlp_tp`` — column-parallel ``gate/up`` (``in``), row-parallel
   ``down`` (``out``), then ``psum``;
+* both under sequence parallelism (``Hints.seq_parallel``: the
+  residual's sequence split over ``model``, ``split_range(S, M, j)``
+  rows on model index ``j``, where the reference pads to a multiple of
+  ``M``): the caller ``all_gather``s the normed shards along the
+  sequence before the column-parallel products and passes
+  ``psum_scatter_rows`` (the float32 reduce-scatter of the row-parallel
+  partials back onto the shards) in place of ``psum_rows``
+  (``seq_gather`` gives both);
 * ``attention_decode_tp`` — one token against a KV cache split along
   its sequence over ``model``: column-parallel flat projections
   gathered, ``decode_attention_partial`` per cache block,
@@ -509,6 +517,47 @@ def psum_rows(partials: list, devs: list) -> list:
                                         devs)]
 
 
+def psum_scatter_rows(partials: list, devs: list) -> list:
+    """``psum_rows``' sequence-parallel counterpart: row-parallel partials
+    [B, S, d] reduce-scattered along the sequence in float32, model index
+    ``j`` keeping rows ``split_range(S, M, j)``, rounded to their dtype
+    once."""
+    dt = partials[0].dtype
+    return [x.to(dt) for x in spmd.psum_scatter(
+        [x.float() for x in partials], 1, devs)]
+
+
+def seq_gather(xs: list, devs: list, sp: bool):
+    """A model row's inputs -> (the whole sequence on every device, the
+    reduce that returns a row-parallel output to ``xs``' layout).
+    ``sp``: ``xs`` are the sequence shards, ``all_gather``ed along the
+    sequence, and the reduce is ``psum_scatter_rows``; else ``xs`` as
+    they are and ``psum_rows``."""
+    if sp:
+        return spmd.all_gather(xs, 1, devs), psum_scatter_rows
+    return xs, psum_rows
+
+
+def seq_scatter(x: torch.Tensor, devs: list, sp: bool) -> list:
+    """A tensor [B, S, ...] whole on one device -> the row's layout:
+    ``sp``: model index ``j``'s rows ``split_range(S, M, j)`` on
+    ``devs[j]``, else the whole on each (a slice or ``x`` itself where
+    it lies on the device, else a copy)."""
+    if not sp:
+        return [x.to(d) for d in devs]
+    S, M = x.shape[1], len(devs)
+    return [x[:, lo:hi].to(d) for d, (lo, hi) in
+            zip(devs, (split_range(S, M, j) for j in range(M)))]
+
+
+def seq_whole(row: list, dev, sp: bool) -> torch.Tensor:
+    """``seq_scatter``'s inverse: a row's layout -> the whole on ``dev``
+    (the shards concatenated, or the first device's)."""
+    if sp:
+        return torch.cat([h.to(dev) for h in row], 1)
+    return row[0].to(dev)
+
+
 def kv_heads_of(cfg, lo: int, hi: int) -> tuple[int, int] | None:
     """The KV heads query heads ``lo:hi`` read, as a range, when the
     range's grouping is the whole layout's (each of its query heads
@@ -567,7 +616,8 @@ def project_qkv_heads(p: dict, x: torch.Tensor, cfg, positions, lo: int,
 
 def attention_tp(p: dict, xs: list, cfg, positions: list | None,
                  devs: list, *, causal: bool = True, window: int = 0,
-                 train: bool = False, kv_xs: list | None = None):
+                 train: bool = False, kv_xs: list | None = None,
+                 reduce=psum_rows):
     """Head-TP attention (sequence form) over the model devices ``devs``
     -> (the attention block's output on every device, each device's (k,
     v, (klo, khi)) for the cache).  Model index ``j`` runs query heads
@@ -575,7 +625,10 @@ def attention_tp(p: dict, xs: list, cfg, positions: list | None,
     kernel when serving on the card), then its rows of the output
     projection; the partials are ``psum``med and the bias added once.
     ``kv_xs[j]``: the sequence a cross-attention's K/V come from, on
-    ``devs[j]``; ``positions`` (``None`` where no RoPE reads them)."""
+    ``devs[j]``; ``positions`` (``None`` where no RoPE reads them).
+    ``xs``, ``kv_xs`` and ``positions`` hold the whole sequence;
+    ``reduce``: the partials' sum, ``psum_scatter_rows`` to hand each
+    device its sequence shard (``seq_gather``)."""
     M = len(devs)
     hd = cfg.head_dim
     partials, kvs = [], []
@@ -591,7 +644,7 @@ def attention_tp(p: dict, xs: list, cfg, positions: list | None,
         partials.append(dense_rows(p["o"], a.reshape(B, S, -1), lo * hd,
                                    hi * hd))
         kvs.append((k, v, kr))
-    return add_bias(p["o"], psum_rows(partials, devs)), kvs
+    return add_bias(p["o"], reduce(partials, devs)), kvs
 
 
 def gathered_cols(p: dict, xs: list, n: int, devs: list) -> list:
@@ -678,10 +731,10 @@ def attention_decode_tp(p: dict, xs: list, cfg, lens: list, devs: list,
     return add_bias(p["o"], psum_rows(partials, devs))
 
 
-def mlp_tp(p: dict, xs: list, cfg, devs: list) -> list:
+def mlp_tp(p: dict, xs: list, cfg, devs: list, reduce=psum_rows) -> list:
     """The MLP over a model row: column-parallel ``gate``/``up`` (``in``)
     on ``split_range(d_ff, M, j)``, row-parallel ``down`` (``out``), then
-    ``psum`` and the output bias once."""
+    ``reduce`` (as in ``attention_tp``) and the output bias once."""
     M = len(devs)
     out = []
     if cfg.mlp == "swiglu":
@@ -691,10 +744,10 @@ def mlp_tp(p: dict, xs: list, cfg, devs: list) -> list:
             h = F.silu(dense_cols(p["gate"], x, lo, hi)) * dense_cols(
                 p["up"], x, lo, hi)
             out.append(dense_rows(p["down"], h, lo, hi))
-        return add_bias(p["down"], psum_rows(out, devs))
+        return add_bias(p["down"], reduce(out, devs))
     ff = p["in"]["w"].shape[1]
     for j, x in enumerate(xs):
         lo, hi = split_range(ff, M, j)
         h = F.gelu(dense_cols(p["in"], x, lo, hi), approximate="tanh")
         out.append(dense_rows(p["out"], h, lo, hi))
-    return add_bias(p["out"], psum_rows(out, devs))
+    return add_bias(p["out"], reduce(out, devs))

@@ -28,7 +28,11 @@ weights), convolves its ``x`` channels and the whole ``B``/``C``, runs the
 SSD on its heads (``ssd_intra`` once per head shard on the card), then
 the gated RMSNorm, whose mean square is over all of ``di``: each shard's
 float32 sum of squares is ``psum``med before the scale.  Its rows of
-``out`` give a partial, ``psum``med (``psum_rows``).  The conv state is
+``out`` give a partial, ``psum``med (``psum_rows``).  Under sequence
+parallelism the caller ``all_gather``s the residual's sequence shards
+before the block (the scan runs over the whole sequence) and passes
+``reduce=psum_scatter_rows``, which reduce-scatters the partials back
+onto the shards.  The conv state is
 replicated, as the reference lays it out: each device's last ``W - 1``
 rows of its ``x`` channels are gathered.
 """
@@ -271,9 +275,11 @@ def _conv_state_whole(parts: list, cfg, devs: list) -> list:
     return [torch.cat([x, c[..., -N2:]], dim=-1) for x, c in zip(xs, parts)]
 
 
-def _gated_norm_out(p, ys, zs, cfg, devs, dtype) -> list:
+def _gated_norm_out(p, ys, zs, cfg, devs, dtype,
+                    reduce=psum_rows) -> list:
     """The gated RMSNorm over all of ``di`` and the row-parallel output:
-    ``ys[j]``/``zs[j]`` [B,S,cw] -> the block's output on every device."""
+    ``ys[j]``/``zs[j]`` [B,S,cw] -> the block's output, ``reduce``d
+    (``ssd_tp``)."""
     di = dims(cfg)[0]
     M = len(devs)
     gs, sq = [], []
@@ -289,15 +295,17 @@ def _gated_norm_out(p, ys, zs, cfg, devs, dtype) -> list:
         scale = piece(p["norm"]["scale"], g.device, [(clo, chi)])
         n = (g * torch.rsqrt(t / di + RMS_EPS) * scale).to(dtype)
         parts.append(dense_rows(p["out"], n, clo, chi))
-    return add_bias(p["out"], psum_rows(parts, devs))
+    return add_bias(p["out"], reduce(parts, devs))
 
 
 def ssd_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
-           return_state: bool = False, train: bool = False):
+           return_state: bool = False, train: bool = False,
+           reduce=psum_rows):
     """``apply_ssd`` by head shard over the model row ``devs`` -> the
     block's output [B,S,d] on every device (+ each device's state with
     ``return_state``); ``state0s[j]``: device ``j``'s state to continue
-    from; ``train`` takes the chunk scan."""
+    from; ``train`` takes the chunk scan; ``reduce``: the output's sum
+    (``layers.attention_tp``)."""
     M = len(devs)
     di, nh, hp, N = dims(cfg)
     B, S0, _ = xs[0].shape
@@ -346,7 +354,8 @@ def ssd_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
         ys.append(y.reshape(B, S, cw)[:, :S0])
         zs.append(z[:, :S0])
         states.append((h_last, conv_in[:, S0 - (W - 1): S0, :]))
-    outs = _gated_norm_out(p, ys, zs, cfg, devs, xs[0].dtype)
+    outs = _gated_norm_out(p, ys, zs, cfg, devs, xs[0].dtype,
+                           reduce)
     if not return_state:
         return outs
     convs = _conv_state_whole([c for _, c in states], cfg, devs)

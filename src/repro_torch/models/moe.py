@@ -38,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_spec
+from repro_torch.models.layers import dense_spec, seq_scatter, seq_whole
 from repro_torch.models.params import normal
 
 # dropped pairs since the last ``reset_dropped``: one int64 counter per
@@ -239,22 +239,22 @@ def _local_expert_ffn(rx, re, gw, uw, dw, E_loc: int, C2: int):
 
 def moe_ep(p: dict, X: list, cfg, hints, grid):
     """The expert-parallel MoE over the grid: ``X[r][j]`` is batch block
-    ``r``'s input [Br, S, d], whole, on ``grid[r, j]``.  -> (the outputs
-    in the same layout, the aux loss on ``grid[0, 0]``)."""
+    ``r``'s input on ``grid[r, j]``: its sequence shard [Br, S_j, d]
+    under sequence parallelism (the reference's ``shard_map`` over the
+    ``residual`` spec), else the whole [Br, S, d].  Each device routes
+    and dispatches the tokens it holds.  -> (the outputs in the same
+    layout, the aux loss on ``grid[0, 0]``)."""
     from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import piece, whole
     R, M = grid.shape
     E, k = cfg.n_experts, cfg.top_k
     E_loc = E // M
-    sp = hints.seq_parallel()
-    Br, S, d = X[0][0].shape
+    d = X[0][0].shape[-1]
     dt = X[0][0].dtype
     cells = []       # per (r, j): its local routing
     for r in range(R):
         for j in range(M):
             x, dev = X[r][j], grid[r, j]
-            if sp:
-                x = x[:, S * j // M:S * (j + 1) // M]
             xf = x.reshape(-1, d)
             probs = _route(xf, whole(p["router"]["w"], dev))
             top_w, top_e = _top_k(probs, k)
@@ -271,7 +271,8 @@ def moe_ep(p: dict, X: list, cfg, hints, grid):
     n_tok = float(sum(c["xf"].shape[0] for c in cells))
     aux = E * torch.sum((me / n_tok) * (ce / n_tok))
 
-    T = cells[0]["xf"].shape[0]
+    # the largest shard's tokens: the reference's padded shard
+    T = max(c["xf"].shape[0] for c in cells)
     Cs = _ceil8(int(T * k / M * cfg.capacity_factor))
     C2 = _ceil8(int(M * Cs * cfg.capacity_factor / E_loc))
     for c in cells:
@@ -301,20 +302,20 @@ def moe_ep(p: dict, X: list, cfg, hints, grid):
             yl = torch.einsum("tkd,tk->td", y_pairs.view(-1, k, d),
                               c["top_w"].to(dt))
             ys.append(yl.reshape(c["x"].shape))
-        if sp:
-            ys = spmd.all_gather(ys, 1, devs)
         out.append(ys)
     return out, aux
 
 
 def _moe_shard_map(p: dict, x: torch.Tensor, cfg, hints):
     """``apply_moe``'s expert-parallel form on a whole ``x`` [B,S,d]:
-    its batch blocks copied to the grid, ``moe_ep``, the outputs
-    gathered back to ``x``'s device."""
+    its batch blocks copied to the grid (their sequence shards under
+    sequence parallelism), ``moe_ep``, the outputs gathered back to
+    ``x``'s device."""
     grid = hints.grid()
     R, M = grid.shape
+    sp = hints.seq_parallel()
     xr = x.chunk(R, 0)
-    ys, aux = moe_ep(p, [[xr[r].to(d) for d in grid[r]] for r in range(R)],
-                     cfg, hints, grid)
-    return (torch.cat([ys[r][0].to(x.device) for r in range(R)], 0),
+    ys, aux = moe_ep(p, [seq_scatter(xr[r], list(grid[r]), sp)
+                         for r in range(R)], cfg, hints, grid)
+    return (torch.cat([seq_whole(ys[r], x.device, sp) for r in range(R)], 0),
             aux.to(x.device))

@@ -32,7 +32,10 @@ by row, as ``spec_for`` uses an axis once); the partials are summed in
 float32 and each device keeps its own channels (``spmd.psum_scatter``).
 The scan runs on ``[B, S, dr/M]`` (one ``linear_scan`` launch a shard on
 the card), then its rows of ``out`` give a partial, ``psum``med.  The
-state (``h`` and the conv rows) stays split by channel.
+state (``h`` and the conv rows) stays split by channel.  Where the
+residual is sequence-parallel (not recurrentgemma-9b, whose config
+turns it off) the caller gathers the sequence shards first and passes
+``reduce=psum_scatter_rows``, as for ``mamba2.ssd_tp``.
 """
 
 from __future__ import annotations
@@ -202,21 +205,24 @@ def _branches(p: dict, x: torch.Tensor, lo: int, hi: int):
             piece(p["conv_b"], x.device, [(lo, hi)]))
 
 
-def _out_tp(p: dict, gates: list, hs: list, xs: list, devs: list) -> list:
-    """Row-parallel ``out`` over the shards' gated states, ``psum``."""
+def _out_tp(p: dict, gates: list, hs: list, xs: list, devs: list,
+            reduce=psum_rows) -> list:
+    """Row-parallel ``out`` over the shards' gated states, ``reduce``d."""
     M, dr = len(devs), p["lam"].shape[0]
-    return add_bias(p["out"], psum_rows(
+    return add_bias(p["out"], reduce(
         [dense_rows(p["out"], (g.float() * h).to(x.dtype),
                     *split_range(dr, M, j))
          for j, (g, h, x) in enumerate(zip(gates, hs, xs))], devs))
 
 
 def rglru_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
-             return_state: bool = False, train: bool = False):
+             return_state: bool = False, train: bool = False,
+             reduce=psum_rows):
     """``apply_rglru`` by channel shard over the model row ``devs`` -> the
     block's output [B,S,d] on every device (+ each device's state with
     ``return_state``); ``state0s[j]``: device ``j``'s state to continue
-    from (``apply_rglru``'s ``h0`` and ``conv0``)."""
+    from (``apply_rglru``'s ``h0`` and ``conv0``); ``reduce``: the
+    output's sum (``layers.attention_tp``)."""
     M, dr = len(devs), cfg.d_model
     W = cfg.rglru_conv_width
     gates, u_ins, us = [], [], []
@@ -233,7 +239,7 @@ def rglru_tp(p: dict, xs: list, cfg, devs: list, state0s: list | None = None,
     scan = _linear_scan_train if train else _linear_scan
     hs = [scan(a, b, None if state0s is None else state0s[j]["h"])
           for j, (a, b) in enumerate(_gates_tp(p, us, devs))]
-    outs = _out_tp(p, gates, hs, xs, devs)
+    outs = _out_tp(p, gates, hs, xs, devs, reduce)
     if return_state:
         return outs, [{"h": h[:, -1, :], "conv": u[:, -(W - 1):, :]}
                       for h, u in zip(hs, u_ins)]

@@ -49,8 +49,21 @@ channel shard (``rglru.rglru_tp``), where the model size divides the
 heads or the channels (``spec_for`` splits the weights then; where it
 does not, it replicates them over ``model`` and the block runs whole on
 the row's first device).  The embedding and the serving logits are
-vocab-parallel.  The loss reduces the NLL sums and label counts over
-the replicas separately (the global mean).  The prefill cache comes out
+vocab-parallel.  Where the config is sequence-parallel
+(``Hints.seq_parallel``: train and prefill, ``cfg.seq_parallel`` and
+``model`` > 1) the residual between blocks is the reference's
+``P(dp, "model", None)``: model index ``j`` holds rows
+``split_range(S, M, j)`` (uneven where ``M`` does not divide ``S``; the
+reference pads).  The embedding's parts are reduce-scattered onto those
+rows, each block all-gathers its normed shards before its
+column-parallel products and reduce-scatters its row-parallel partials
+back (``layers.psum_scatter_rows``), MoE's expert-parallel dispatch
+routes each device's own rows, and a form that runs whole on a row's
+first device gathers the shards and hands each device its rows after.
+The loss is vocab-parallel (``chunked_ce_tp``, the reference's
+``logits`` spec): no device reads the head whole; it reduces the NLL
+sums and label counts over the replicas separately (the global mean).
+Decode keeps the whole one-token residual.  The prefill cache comes out
 in ``spec_for``'s layout of ``cache_spec``: each attention layer's K/V
 in ``cache_seq`` blocks over ``model`` (the whole rows of every KV head,
 from the devices that projected them; ``max_len`` rounded up to a
@@ -89,7 +102,8 @@ from repro_torch.models.layers import (NO_HINTS, Hints, apply_mlp,
                                        dense, gathered_cols, head_devices,
                                        layernorm_spec, mlp_spec, mlp_tp,
                                        project_qkv, remat, rmsnorm_spec,
-                                       rope, sinusoidal_rows,
+                                       rope, seq_gather, seq_scatter,
+                                       seq_whole, sinusoidal_rows,
                                        sinusoidal_table, split_range)
 from repro_torch.models.mamba2 import (apply_ssd, dims as ssm_dims,
                                        mamba2_spec, ssd_decode_step,
@@ -493,6 +507,84 @@ def chunk_nll(h_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor,
     return torch.where(l_c >= 0, lse - picked, 0.0)
 
 
+def _head_cols(head, dev, lo: int, hi: int, tied: bool) -> torch.Tensor:
+    """Columns ``lo:hi`` of the output head [d, V] on ``dev``: of
+    ``head``, or of the tied embedding [V, d] (its rows, transposed)."""
+    if tied:
+        return piece(head, dev, [(lo, hi)]).T
+    return piece(head, dev, [(0, head.shape[0]), (lo, hi)])
+
+
+def chunk_nll_tp(hs: list, ws: list, ls: list, n_vocab: int, V: int,
+                 devs: list) -> list:
+    """``chunk_nll`` vocab-parallel over a model row (the reference's
+    ``logits`` spec ``P(dp, None, "model")``): ``hs[j]`` the chunk's rows
+    [B, c, d], ``ws[j]`` columns ``split_range(V, M, j)`` of the head and
+    ``ls[j]`` the labels [B, c], on ``devs[j]``.  Model index ``j``
+    computes its logits in float32 (padded ids masked), the row maximum
+    is ``pmax``ed (detached: a stabiliser, whose gradient cancels), the
+    ``exp`` sums and the label's logit (picked where the label falls in
+    the block; -1 falls nowhere) are ``psum``med -> the per-token NLL on
+    every device."""
+    M = len(devs)
+    logits, tops, picks = [], [], []
+    for j, (h, w, l) in enumerate(zip(hs, ws, ls)):
+        lo, hi = split_range(V, M, j)
+        lg = h.float() @ w.float()
+        if n_vocab and n_vocab < hi:
+            lg = torch.where(torch.arange(lo, hi, device=lg.device)
+                             < n_vocab, lg, -math.inf)
+        logits.append(lg)
+        tops.append(lg.detach().amax(-1))
+        t = l - lo
+        own = (t >= 0) & (t < hi - lo)
+        pk = torch.gather(lg, -1, torch.clamp(t, 0, hi - lo - 1)[..., None])
+        picks.append(torch.where(own, pk[..., 0], 0.0))
+    top = spmd.pmax(tops, devs)
+    sums = spmd.psum([torch.exp(lg - m[..., None]).sum(-1)
+                      for lg, m in zip(logits, top)], devs)
+    picked = spmd.psum(picks, devs)
+    return [torch.where(l >= 0, torch.log(s) + m - pk, 0.0)
+            for l, s, m, pk in zip(ls, sums, top, picked)]
+
+
+def chunked_ce_tp(H: list, head, labels: list, chunk: int, n_vocab: int,
+                  devs: list, tied: bool, sp: bool):
+    """``chunked_ce`` over a model row, vocab-parallel (``chunk_nll_tp``):
+    ``H[j]`` model index ``j``'s final-normed rows on ``devs[j]`` (its
+    ``split_range(S, M, j)`` shard with ``sp``, else the whole);
+    ``head``: the head [d, V], or with ``tied`` the embedding [V, d] (a
+    tensor or ``ShardedTensor``), read a block of columns a device;
+    ``labels[j]`` [B, S] on ``devs[j]``.  The chunks are
+    ``chunked_ce``'s, each rematerialized (with ``sp`` its rows gathered
+    inside).  -> (sum_nll, n_valid) on ``devs[0]``."""
+    M = len(devs)
+    S = sum(h.shape[1] for h in H) if sp else H[0].shape[1]
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    V = head.shape[0 if tied else 1]
+    dt = H[0].dtype
+    ws = [_head_cols(head, d, *split_range(V, M, j), tied).to(dt)
+          for j, d in enumerate(devs)]
+    ls = [l.long() for l in labels]
+    bounds = [split_range(S, M, j) for j in range(M)]
+
+    def body(hs, ls):
+        hs, _ = seq_gather(hs, devs, sp)
+        return chunk_nll_tp(hs, ws, ls, n_vocab, V, devs)[0].sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=devs[0])
+    for s in range(0, S, chunk):
+        if sp:   # each shard's rows of the chunk (some empty)
+            hs = [h[:, max(s, lo) - lo:max(min(s + chunk, hi), lo) - lo]
+                  for h, (lo, hi) in zip(H, bounds)]
+        else:
+            hs = [h[:, s:s + chunk] for h in H]
+        tot = tot + remat(body, hs, [l[:, s:s + chunk] for l in ls])
+    cnt = (ls[0] >= 0).sum().to(torch.int32)
+    return tot, cnt
+
+
 def _write_back(dst, src):
     """Copy each leaf of ``src`` into ``dst`` unless it is ``dst`` already
     (the attention rows were written in place)."""
@@ -533,10 +625,10 @@ def _stack_sharded(trees: list):
     return tree_map(stack, trees[0], *trees[1:], is_leaf=is_sharded)
 
 
-def _embed_tp(params, tokens: torch.Tensor, cfg, devs) -> list:
+def _embed_parts(params, tokens: torch.Tensor, devs) -> list:
     """Vocab-parallel lookup: model index ``j`` reads the tokens in its
-    rows of the table, zeros elsewhere, and the ``psum`` adds one row to
-    zeros (exact) -> the embedded rows on every device of the row."""
+    rows of the table, zeros elsewhere (the parts a sum over the row
+    adds, one row to zeros: exact)."""
     emb = params["embed"]
     V, M = emb.shape[0], len(devs)
     parts = []
@@ -546,7 +638,45 @@ def _embed_tp(params, tokens: torch.Tensor, cfg, devs) -> list:
         ok = (t >= 0) & (t < hi - lo)
         rows = piece(emb, dev, [(lo, hi)])[torch.clamp(t, 0, hi - lo - 1)]
         parts.append(torch.where(ok[..., None], rows, 0.0))
-    return [h.to(DTYPES[cfg.dtype]) for h in spmd.psum(parts, devs)]
+    return parts
+
+
+def _embed_tp(params, tokens: torch.Tensor, cfg, devs) -> list:
+    """``_embed_parts``, ``psum``med -> the embedded rows on every device
+    of the row."""
+    return [h.to(DTYPES[cfg.dtype])
+            for h in spmd.psum(_embed_parts(params, tokens, devs), devs)]
+
+
+def _embed_seq(params, tokens: torch.Tensor, cfg, devs, patches=None,
+               sp: bool = False, positional=None) -> list:
+    """The sequence forms' residual before the first block: the embedded
+    tokens behind the VLM's ``patches`` (whole, on ``devs[0]``), the
+    sinusoidal rows where ``cfg.pos`` asks for them.  ``sp``: model index
+    ``j``'s rows ``split_range(S, M, j)`` (the reference's ``residual``
+    constraint after the embedding): the prefix and the positional rows
+    go into model index 0's part, and the parts, in the compute type,
+    are ``psum_scatter``ed along the sequence (each row one nonzero part
+    plus those rows: the bits of the single device's sum); else the
+    whole rows on every device.  ``positional``: a function adding the
+    positional rows to [B, S, d] in its stead (the enc-dec's)."""
+    if positional is None:
+        def positional(h):
+            return _add_positional(h, cfg)
+    if not sp:
+        hs = _embed_tp(params, tokens, cfg, devs)
+        if patches is not None:
+            hs = [torch.cat([patches.to(h.device, h.dtype), h], dim=1)
+                  for h in hs]
+        return [positional(h) for h in hs]
+    dt = DTYPES[cfg.dtype]
+    parts = [x.to(dt) for x in _embed_parts(params, tokens, devs)]
+    if patches is not None:
+        pre = patches.to(devs[0], dt)
+        parts = [torch.cat([pre if j == 0 else torch.zeros_like(
+            pre, device=x.device), x], dim=1) for j, x in enumerate(parts)]
+    parts[0] = positional(parts[0])
+    return spmd.psum_scatter(parts, 1, devs)
 
 
 def _logits_tp(model, params, h: torch.Tensor, devs) -> torch.Tensor:
@@ -621,57 +751,74 @@ def _rows_sharded(entries: list, hints: Hints):
 
 def _ffn_sharded(p, X2, kind, cfg, hints, grid, decode: bool = False):
     """The feed-forward half of an attention block over the grid ->
-    (per-device outputs, aux)."""
+    (per-device outputs, aux); under sequence parallelism (not in a
+    decode step) ``X2`` and the outputs are the sequence shards."""
     R, M = grid.shape
     dev0 = grid[0, 0]
+    sp = hints.seq_parallel() and not decode
     aux = torch.zeros((), dtype=torch.float32, device=dev0)
     if kind != BlockKind.MOE:
-        return [mlp_tp(p["mlp"], X2[r], cfg, list(grid[r]))
-                for r in range(R)], aux
+        out = []
+        for r in range(R):
+            devs = list(grid[r])
+            xs, reduce = seq_gather(X2[r], devs, sp)
+            out.append(mlp_tp(p["mlp"], xs, cfg, devs, reduce))
+        return out, aux
     if not decode and uses_ep(cfg, hints):
         return moe_ep(p["moe"], X2, cfg, hints, grid)
     # the reference's global-shape dispatch: every replica's tokens
     # together (capacity and aux over the whole batch)
-    x = torch.cat([X2[r][0].to(dev0) for r in range(R)], 0)
+    x = torch.cat([seq_gather(X2[r], list(grid[r]), sp)[0][0].to(dev0)
+                   for r in range(R)], 0)
     y, aux = apply_moe(_whole_tree(p["moe"], dev0), x, cfg)
     y = y.chunk(R, 0)
-    return [[y[r].to(d) for d in grid[r]] for r in range(R)], aux
+    return [seq_scatter(y[r], list(grid[r]), sp) for r in range(R)], aux
 
 
 def _attn_rows(pa, pn, H, cfg, grid, positions, *, window: int = 0,
-               causal: bool = True, train: bool = False, kv_H=None):
+               causal: bool = True, train: bool = False, kv_H=None,
+               sp: bool = False):
     """Pre-norm attention (weights ``pa``, norm ``pn``) with its residual
     over the grid, by head shard over ``head_devices`` -> (H', each row's
     ``attention_tp`` K/V).  ``kv_H``: the rows a cross-attention's K/V
-    come from; ``positions`` ``None`` where no RoPE reads them."""
+    come from, whole; ``positions`` (whole) ``None`` where no RoPE reads
+    them.  ``sp``: ``H`` holds the sequence shards, each normed on its
+    device and gathered along the row (``seq_gather``; where the heads
+    run whole on the row's first device the row gathers them all the
+    same, as the reference's replicated weights read a gathered
+    residual, and each device takes its rows of the output)."""
     R, M = grid.shape
     out, kv_rows = [], []
     for r in range(R):
         devs = list(grid[r])
         tp = head_devices(cfg, devs)
         n = len(tp)
-        xs = [apply_norm(_whole_tree(pn, d), h, cfg.norm)
-              for h, d in zip(H[r][:n], tp)]
+        rows = H[r] if sp else H[r][:n]
+        xs, reduce = seq_gather(
+            [apply_norm(_whole_tree(pn, d), h, cfg.norm)
+             for h, d in zip(rows, devs)], devs[:len(rows)], sp)
         ys, kvs = attention_tp(
-            pa, xs, cfg, None if positions is None else positions[r][:n],
+            pa, xs[:n], cfg, None if positions is None else positions[r][:n],
             tp, causal=causal, window=window, train=train,
-            kv_xs=None if kv_H is None else kv_H[r][:n])
+            kv_xs=None if kv_H is None else kv_H[r][:n], reduce=reduce)
         if n < M:
-            ys = [ys[0].to(d) for d in devs]
+            ys = seq_scatter(ys[0], devs, sp)
         out.append([h + y for h, y in zip(H[r], ys)])
         kv_rows.append(kvs)
     return out, kv_rows
 
 
-def _mlp_rows(p, H, cfg, grid):
-    """The pre-norm (``ln2``) MLP with its residual over the grid."""
+def _mlp_rows(p, H, cfg, grid, sp: bool = False):
+    """The pre-norm (``ln2``) MLP with its residual over the grid (``sp``:
+    on the sequence shards)."""
     out = []
     for r, row in enumerate(H):
         devs = list(grid[r])
-        xs = [apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
-              for h, d in zip(row, devs)]
+        xs, reduce = seq_gather([apply_norm(_whole_tree(p["ln2"], d), h,
+                                            cfg.norm)
+                                 for h, d in zip(row, devs)], devs, sp)
         out.append([h + y for h, y in zip(row, mlp_tp(p["mlp"], xs, cfg,
-                                                       devs))])
+                                                       devs, reduce))])
     return out
 
 
@@ -728,16 +875,18 @@ def _mixer_states(cache, r: int, devs: list) -> list:
 
 def _block_sharded(p, H, kind, cfg, hints, grid, positions,
                    collect_cache: bool, max_len: int, train: bool):
-    """One block over the grid -> (H', aux, cache entry | None)."""
+    """One block over the grid -> (H', aux, cache entry | None); under
+    sequence parallelism ``H`` holds the sequence shards in and out."""
     R, M = grid.shape
     H = [list(row) for row in H]
-    dp = hints.dp()
+    sp = hints.seq_parallel()
     aux = torch.zeros((), dtype=torch.float32, device=grid[0, 0])
     cache = None
     if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.LOCAL_ATTN):
         window = cfg.window if kind == BlockKind.LOCAL_ATTN else 0
         H, kv_rows = _attn_rows(p["attn"], p["ln1"], H, cfg, grid,
-                                positions, window=window, train=train)
+                                positions, window=window, train=train,
+                                sp=sp)
         X2 = [[apply_norm(_whole_tree(p["ln2"], d), h, cfg.norm)
                for h, d in zip(H[r], grid[r])] for r in range(R)]
         ys, aux = _ffn_sharded(p, X2, kind, cfg, hints, grid)
@@ -755,28 +904,32 @@ def _block_sharded(p, H, kind, cfg, hints, grid, positions,
         states = []
         for r in range(R):
             devs = list(grid[r])
-            xs = [apply_norm(_whole_tree(ln, d), h, cfg.norm)
-                  for h, d in zip(H[r], devs)]
+            xs, reduce = seq_gather([apply_norm(_whole_tree(ln, d), h,
+                                                cfg.norm)
+                                     for h, d in zip(H[r], devs)], devs, sp)
             ys = form(mixer, xs, cfg, devs, return_state=collect_cache,
-                      train=train)
+                      train=train, reduce=reduce)
             if collect_cache:
                 ys, st = ys
                 states.append(st)
             H[r] = [h + y for h, y in zip(H[r], ys)]
         if kind == BlockKind.RECURRENT:
-            H = _mlp_rows(p, H, cfg, grid)
+            H = _mlp_rows(p, H, cfg, grid, sp)
         if collect_cache:
             cache = _mixer_cache(states, kind, cfg, hints)
         return H, aux, cache
     # the model size splits neither the heads nor the channels: the
-    # weights are replicated over ``model``, the block runs whole
+    # weights are replicated over ``model``, the block runs whole on the
+    # row's first device (on the gathered shards under sequence
+    # parallelism, each device taking its rows of the output after)
     entries = []
     for r in range(R):
         devs = list(grid[r])
-        h, a, c = apply_block(_whole_tree(p, devs[0]), H[r][0], kind, cfg,
+        h, a, c = apply_block(_whole_tree(p, devs[0]),
+                              seq_gather(H[r], devs, sp)[0][0], kind, cfg,
                               positions[r][0], collect_cache, max_len,
                               train)
-        H[r] = [h.to(d) for d in devs]
+        H[r] = seq_scatter(h, devs, sp)
         aux = aux + a.to(aux.device)
         entries.append(c)
     return H, aux, (_rows_sharded(entries, hints) if collect_cache
@@ -957,7 +1110,9 @@ class DecoderLM:
         if self.hints.sharded:
             H, aux, cache = self._hidden_rows(params, tokens, patches,
                                               collect_cache, max_len, train)
-            h = torch.cat([row[0].to(self.device) for row in H], 0)
+            h = torch.cat([seq_whole(row, self.device,
+                                     self.hints.seq_parallel())
+                           for row in H], 0)
             return h, aux, cache
         h = _embed_tokens(params, tokens, cfg)
         if patches is not None:
@@ -981,13 +1136,13 @@ class DecoderLM:
         H, positions = [], []
         for r in range(R):
             devs = list(grid[r])
-            hs = _embed_tp(params, _rows(tokens, devs[0], r, R), cfg, devs)
-            if patches is not None:
-                pr = _rows(patches, devs[0], r, R)
-                hs = [torch.cat([pr.to(h.device, h.dtype), h], dim=1)
-                      for h in hs]
-            hs = [_add_positional(h, cfg) for h in hs]
-            Br, S = hs[0].shape[:2]
+            hs = _embed_seq(params, _rows(tokens, devs[0], r, R), cfg, devs,
+                            None if patches is None
+                            else _rows(patches, devs[0], r, R),
+                            self.hints.seq_parallel())
+            Br = hs[0].shape[0]
+            S = sum(h.shape[1] for h in hs) if self.hints.seq_parallel() \
+                else hs[0].shape[1]
             positions.append([torch.arange(S, device=d).expand(Br, S)
                               for d in devs])
             H.append(hs)
@@ -1000,23 +1155,25 @@ class DecoderLM:
 
     def _loss_sharded(self, params, batch):
         """The loss over the grid: each replica's NLL sum and label count
-        on its rows, reduced separately (the global mean)."""
+        on its rows (``chunked_ce_tp``: vocab-parallel along the row),
+        reduced separately (the global mean)."""
         cfg, grid = self.cfg, self.grid
         R = grid.shape[0]
         H, aux, _ = self._hidden_rows(params, batch["tokens"],
                                       batch.get("patches"), train=True)
+        tied = cfg.tie_embeddings
+        head = params["embed"] if tied else params["head"]
         tots, cnts = [], []
         for r in range(R):
-            dev = grid[r, 0]
-            labels = _rows(batch["labels"], dev, r, R)
+            devs = list(grid[r])
+            labels = [_rows(batch["labels"], d, r, R) for d in devs]
             if "patches" in batch:
                 P_ = batch["patches"].shape[1]
-                labels = torch.cat([labels.new_full((labels.shape[0], P_),
-                                                    -1), labels], dim=1)
-            head = (whole(params["embed"], dev).T if cfg.tie_embeddings
-                    else whole(params["head"], dev))
-            t, c = chunked_ce(H[r][0], head, labels, cfg.logit_chunk,
-                              cfg.vocab)
+                labels = [torch.cat([l.new_full((l.shape[0], P_), -1), l],
+                                    dim=1) for l in labels]
+            t, c = chunked_ce_tp(H[r], head, labels, cfg.logit_chunk,
+                                 cfg.vocab, devs, tied,
+                                 self.hints.seq_parallel())
             tots.append(t)
             cnts.append(c)
         tot = spmd.psum(tots, [self.device] * R)[0]
@@ -1067,10 +1224,13 @@ class DecoderLM:
         R = grid.shape[0]
         H, _, cache = self._hidden_rows(params, tokens, patches,
                                         collect_cache=True, max_len=max_len)
-        logits = torch.cat([_logits_tp(self, params, H[r][0][:, -1, :],
+        # the last position: on the last model index's shard under
+        # sequence parallelism (never empty: split_range's last block)
+        last = -1 if self.hints.seq_parallel() else 0
+        logits = torch.cat([_logits_tp(self, params, H[r][last][:, -1, :],
                                        list(grid[r])).to(self.device)
                             for r in range(R)], 0)
-        S = H[0][0].shape[1]
+        S = sum(h.shape[1] for h in H[0]) if last else H[0][0].shape[1]
         cache["lens"] = _rows_sharded(
             [torch.full((H[r][0].shape[0],), S, dtype=torch.int32,
                         device=grid[r, 0]) for r in range(R)], self.hints)

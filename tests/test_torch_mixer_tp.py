@@ -355,7 +355,11 @@ def test_dry_run_announces_the_shards(arch, kind, shape):
     ``linear_scan`` (RG-LRU prefill) a layer on its shard, and each
     layer sums over ``model``: two all-reduces a device an SSM layer (the
     norm's squares, the output rows), and an RG-LRU layer two
-    reduce-scatters (the gates) and an all-reduce (the output rows)."""
+    reduce-scatters (the gates) and an all-reduce (the output rows).  In
+    the prefill the smoke configs' residual is sequence-parallel, so the
+    output rows are reduce-scattered onto the sequence shards instead:
+    an SSM layer one all-reduce and one reduce-scatter, an RG-LRU layer
+    three reduce-scatters."""
     cfg = get_config(arch, smoke=True)
     n = sum(k == kind for k in cfg.block_kinds())
     mesh = make_host_mesh((2, 4), devices=D.fake_devices(8))
@@ -371,7 +375,12 @@ def test_dry_run_announces_the_shards(arch, kind, shape):
         coll = {k: c["count"] for k, c in r["collectives"].items()}
         assert r["kernels"].get(kernel, 0) == (n if sh.kind == "prefill"
                                                else 0), r["kernels"]
-        if kind == BlockKind.SSM:
+        if sh.kind == "prefill":
+            assert coll.get("all-reduce", 0) == (
+                n if kind == BlockKind.SSM else 0)
+            assert coll["reduce-scatter"] >= (
+                n if kind == BlockKind.SSM else 3 * n)
+        elif kind == BlockKind.SSM:
             assert coll["all-reduce"] >= 2 * n
         else:
             assert coll["reduce-scatter"] == 2 * n

@@ -10,8 +10,10 @@ Traces the cell (``repro_torch.launch.dryrun.build_cell`` and
 to one and then two depth units (a layer, or a group of the block pattern
 for the hybrid family; the enc-dec family cuts its encoder alike) and
 projects the whole depth's trace seconds as ``t1 + (units - 1) * (t2 -
-t1)``.  Prints one JSON line with both traces' seconds, op counts and the
-process's peak RSS, and the projection.  Touches no card.
+t1)``, and each of the record's per-device figures alike: the peak bytes,
+the roofline terms and each collective kind's count, bytes and seconds.
+Prints one JSON line with both traces' seconds, op counts, figures and the
+process's peak RSS, and the projections.  Touches no card.
 """
 
 from __future__ import annotations
@@ -52,12 +54,33 @@ def main() -> None:
             rec, _ = D.run_cell(fn, fargs, meta, mesh, "", "depth")
         out[f"units_{k}"] = {
             "layers": k * unit, "trace_s": rec["lower_s"],
-            "ops": rec["hlo_bytes"],
+            "ops": rec["hlo_bytes"], "figures": figures(rec),
             "max_rss_gb": resource.getrusage(
                 resource.RUSAGE_SELF).ru_maxrss / 1e6}
+    n = full.n_layers // unit
     t1, t2 = out["units_1"]["trace_s"], out["units_2"]["trace_s"]
-    out["projected_trace_s"] = t1 + (full.n_layers // unit - 1) * (t2 - t1)
+    out["projected_trace_s"] = t1 + (n - 1) * (t2 - t1)
+    out["projected"] = project(out["units_1"]["figures"],
+                               out["units_2"]["figures"], n)
     print(json.dumps(out), flush=True)
+
+
+def figures(rec: dict) -> dict:
+    """A record's per-device figures, flat: peak bytes, the roofline
+    terms, and ``<kind>.<count|bytes|time_s>`` for each collective."""
+    out = {"peak_bytes_per_device": rec["memory"]["peak_bytes_per_device"],
+           **rec["roofline"]}
+    for kind, c in rec["hlo"]["collectives"].items():
+        for k, v in c.items():
+            out[f"{kind}.{k}"] = v
+    return out
+
+
+def project(f1: dict, f2: dict, units: int) -> dict:
+    """Each figure at ``units`` depth units, linear through one and two
+    (a figure missing at one depth counts 0 there)."""
+    return {k: f1.get(k, 0) + (units - 1) * (f2.get(k, 0) - f1.get(k, 0))
+            for k in sorted(set(f1) | set(f2))}
 
 
 if __name__ == "__main__":
