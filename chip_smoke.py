@@ -150,8 +150,10 @@ Phases, each fatal on failure:
    case on the CUDA-core one), beside SDPA with the band as an explicit
    mask (its backend named); non-causal at whisper-tiny's encoder (16 ×
    1500 frames, 6/6 heads, hd 64) and cross-attention (432 rows onto
-   1500 frames), bf16 on the tensor-core route (the encoder's also in
-   float32 on the CUDA-core one), and causal at phi-3-vision-4.2b's
+   1500 frames), bf16 on the tensor-core route's hd-64 kernel (the
+   encoder's shape also in float32 on the CUDA-core route, and on the
+   hd-64 kernel causal, windowed and in fp16, with a ragged 77 -> 300
+   case), and causal at phi-3-vision-4.2b's
    prefill (2 × 2048 positions, 32/32 heads, hd 96) on the tensor-core
    route's hd-96 tiles, bf16 and fp16 (and a ragged non-causal case at
    its head layout in bf16 on that route, in float32 on the CUDA-core
@@ -1147,17 +1149,23 @@ def lm_kernel_rows(torch, rng, reps: int) -> dict:
     del q, k, v, qt, kt_, vt, band_mask
 
     # flash_attention at whisper-tiny's shapes: 16 clips, 6/6 heads at hd
-    # 64, non-causal, on the tensor-core route: the encoder over 1500
-    # frames, and the decoder's cross-attention from a 432-token prompt
-    # onto them (``cross``); the encoder's in float32 on the CUDA-core one
-    # (1e-5)
+    # 64, non-causal, on the tensor-core route (its hd-64 kernel): the
+    # encoder over 1500 frames, and the decoder's cross-attention from a
+    # 432-token prompt onto them (``cross``); the encoder's shape in
+    # float32 on the CUDA-core route (1e-5), and on the hd-64 kernel
+    # causal, windowed (100) and in fp16 (4e-3), and a ragged 77 -> 300
+    # case at whisper's heads
     enc = attention_row(16, 1500, 1500, 6, 64, False, "wgmma",
                         "whisper encoder")
     cross = attention_row(16, 432, 1500, 6, 64, False, "wgmma",
                           "whisper cross-attention")
     cross["bound_ms"], cross["bound_by"] = cross.pop("bound")
-    side = [attention_case(16, 1500, 1500, 6, 6, 64, 0, torch.float32, 1e-5,
-                           "simt", causal=False)]
+    side = [attention_case(*c) for c in (
+        (16, 1500, 1500, 6, 6, 64, 0, torch.float32, 1e-5, "simt", False),
+        (16, 1500, 1500, 6, 6, 64, 0, torch.bfloat16, 2e-2, "wgmma", True),
+        (16, 1500, 1500, 6, 6, 64, 100, torch.bfloat16, 2e-2, "wgmma"),
+        (16, 1500, 1500, 6, 6, 64, 0, torch.float16, 4e-3, "wgmma", False),
+        (2, 77, 300, 6, 6, 64, 0, torch.bfloat16, 2e-2, "wgmma", False))]
     out["flash_attention@encdec"] = {**enc, "cross": cross,
                                      "side_cases": side}
 

@@ -56,10 +56,10 @@
 // last tile down, so the longest bands start first.
 //
 // Tiles by head dim (`Layout<HD>`; one block of 128 query rows per SM):
-//   * hd 64 and 128: 128-key tiles, one producer warp (288 threads), the
-//     output through padded shared memory (no bank conflicts) to 16-byte
-//     coalesced stores.  At hd 128: Q 32 KB, K and V 2 x 32 KB each, the
-//     staging 34 KB: 195 KB.
+//   * hd 128: 128-key tiles, one producer warp (288 threads), the output
+//     through padded shared memory (no bank conflicts) to 16-byte
+//     coalesced stores: Q 32 KB, K and V 2 x 32 KB each, the staging
+//     34 KB: 195 KB.
 //   * hd 96 (192 bytes a row, one and a half boxes) takes hd 128's tiles
 //     and threads over NB = 2 boxes.  The tensor maps keep the true
 //     width, so TMA fills the second box's columns 96..127 with zeros and
@@ -83,6 +83,11 @@
 //     gives its registers up with `setmaxnreg` (down to 40), and the
 //     consumers take them (up to 232: 128 x 40 + 256 x 232 = 64,512 of
 //     the SM's 65,536) for O, S and P.
+//   * hd 64 (whisper-tiny's encoder and cross-attention) has a kernel of
+//     its own, `flash_tc64_kernel` (`Layout64`; see the note above it):
+//     there the exponentials cost as much as the products, so three
+//     consumer warpgroups take turns at the tensor cores and each keeps
+//     a product in flight through its softmax.
 //
 // Plain C interface for ctypes: launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape, an alignment
@@ -108,8 +113,8 @@ constexpr int BOX = 64;        // head-dim columns per TMA box (128 bytes)
 constexpr int OUT_ROWS = 64;   // rows of a TMA output box (one warpgroup)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// What the head dim sets (see the header): hd 64, 96 and 128 keep
-// 128-key tiles, one producer warp and padded output staging; hd 256
+// What the head dim sets (see the header): hd 96 and 128 keep 128-key
+// tiles, one producer warp and padded output staging; hd 256
 // ("wide") takes 64-key tiles, a producer warpgroup that hands its
 // registers to the consumers, and stages the output in the Q tile for TMA
 // stores.  Tiles hold NB whole boxes a row.
@@ -224,6 +229,11 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// the named barrier `id` completes once `threads` have arrived or synced
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -246,6 +256,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// returns once at most N of the thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pins registers to a point in the instruction stream.  Before a wgmma
@@ -671,6 +686,460 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// -- head dim 64 -------------------------------------------------------------
+//
+// At hd 64 a (query, key) pair costs 256 FLOP of products, 1/16 of an SM
+// clock at the tensor cores' rate, and one exp2, also 1/16 of a clock on
+// the MUFU (16 results a clock an SM): the softmax's exponentials alone
+// take as long as the products.  A warpgroup that waits for its products,
+// runs its softmax and then waits again keeps the tensor cores at most
+// half busy, so this kernel overlaps the two both ways:
+//   * turns: the consumer warpgroups (64 query rows each) issue their
+//     products in a fixed round, handed on by named barriers: each one
+//     syncs on its own barrier, issues, and arrives at the next one's.
+//     While one warpgroup runs its softmax, the others' products keep the
+//     tensor cores busy;
+//   * a product in flight through the softmax (FlashAttention-3's
+//     overlap within a warpgroup): a warpgroup issues S = Q K^T of tile
+//     j and O += P V of tile j - 1 in one turn, waits for the first only
+//     (`wgmma.wait_group 1`) and runs tile j's softmax while P V runs; O
+//     is rescaled once that product has completed.  So a thread holds
+//     one S fragment (64 floats), P of the tile before (32 registers)
+//     and O (32 floats).  Q K^T of tile j + 1 in flight during tile j's
+//     softmax instead would need a second S fragment, 192 registers a
+//     thread with P and O: past the 160 a thread can have with three
+//     consumer warpgroups;
+//   * a fuller SM: three consumer warpgroups (192 query rows a
+//     block) and a producer warpgroup that gives its registers up with
+//     `setmaxnreg` (to 32; the consumers take 160: 128 x 32 + 384 x 160
+//     = 65,536); Q 24 KB, a K/V ring of HD64_STAGES x 32 KB and the
+//     padded output staging, 27 KB;
+//   * one grid axis, the q-tile fastest, so the tiles of one head run
+//     side by side and read its K/V through L2 at about the same time;
+//     causal blocks take the last tiles (the longest bands) first.  A
+//     warpgroup whose rows all lie past Sq leaves at once, and the turns
+//     and the ring count only the warpgroups with rows.  The others
+//     compute every tile of the block's band, the masks zeroing what
+//     their rows cannot see (a causal or windowed band's edge tiles), so
+//     no branch stands between a wgmma and its wait;
+//   * a block whose rows fit one warpgroup (432 queries, the
+//     cross-attention's, end in a tile of 48 rows) splits its kv tiles
+//     instead of leaving two warpgroups idle for a whole band: every
+//     warpgroup takes those rows and every third tile, holding one tile
+//     at a time (P V waited for at once), and warpgroup 0 merges the
+//     three partial softmaxes through the ring.
+//     Such tail blocks come after every whole one in the grid's order,
+//     so they fill the last wave's gaps.
+// The rest is as at the other head dims: TMA tensor maps, the 128-byte
+// swizzle, 128-key tiles, P as the register A operand, V MN-major, the
+// element masks only on tiles that cross an edge, the padded-staging
+// epilogue.
+constexpr int HD64_STAGES = 4;  // depth of the K/V ring
+
+struct Layout64 {  // byte offsets from a 1024-aligned base
+  static constexpr int WGS = 3;  // consumer warpgroups, 64 query rows each
+  static constexpr int STAGES = HD64_STAGES;
+  static constexpr int BM = 64 * WGS;  // query rows per block
+  static constexpr int BN = 128;       // keys per kv tile
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int Q_BYTES = BM * 128;
+  static constexpr int KV_BYTES = BN * 128;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int O_LD = 64 + 8;  // staging row, in elements
+  static constexpr int BAR_OFF = O_OFF + BM * O_LD * 2;
+  // barriers: q, full[STAGES], empty[STAGES]
+  static constexpr int ALLOC = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  // named barriers: 1 + wg a warpgroup's epilogue, TURN + wg its turn,
+  // MERGE the split blocks' merge
+  static constexpr int TURN = 1 + WGS;
+  static constexpr int MERGE = TURN + WGS;
+  // a split block's partials in the ring: m, l and O, 36 floats a thread
+  static constexpr int PART = 36 * 128;
+  // the register split (setmaxnreg), all of the SM's registers
+  static constexpr int PRODUCER_REGS = 32;
+  static constexpr int CONSUMER_REGS = 160;
+};
+// a two-stage ring faults on an H100 (an unspecified launch failure, with
+// and without the turns); three and four stages pass every check
+static_assert(Layout64::STAGES >= 3, "hd 64 takes a ring of three or more");
+static_assert(128 * Layout64::PRODUCER_REGS +
+                      128 * Layout64::WGS * Layout64::CONSUMER_REGS <=
+                  65536,
+              "the hd-64 layout's registers exceed the SM's");
+static_assert(Layout64::ALLOC <= 232448,
+              "the hd-64 layout exceeds the 227 KB a block may have");
+
+// S[64 x 128] = Q[64 x 64] K[128 x 64]^T, both K-major in shared memory
+template <bool BF16>
+__device__ __forceinline__ void qk64(float (&s)[64], uint32_t q_addr,
+                                     uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<BF16>(s, sw128_desc(q_addr + kk * 32, 16, 1024),
+                   sw128_desc(k_addr + kk * 32, 16, 1024), kk > 0);
+}
+
+// O[64 x 64] += P[64 x 128] V[128 x 64]: P from registers, V MN-major
+template <bool BF16>
+__device__ __forceinline__ void pv64(float (&o)[32], const uint32_t (&pa)[8][4],
+                                     uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs<BF16>(o, pa[kk], sw128_desc(v_addr + kk * 16 * 128, 128 * 128,
+                                         1024));
+}
+
+// a consumer warp's arrive on a stage's empty barrier
+__device__ __forceinline__ void release64(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// the online softmax of a thread's two rows (r and r + 8 of its
+// warpgroup), in the log2 domain: the running max and the thread's part of
+// the row sums; for the last tile, the old O's factors
+struct Rows64 {
+  float m_lo, m_hi, l_lo, l_hi, al_lo, al_hi;
+};
+
+// one 128-key tile's S in s, keys from kt (this thread's rows at
+// positions qp and qp + 8): the masks where the tile crosses an edge, the
+// running max, P = 2^(S scale - m) in s, and the row sums
+__device__ __forceinline__ void softmax64(float (&s)[64], Rows64& st,
+                                          const Shape& sh, int kt, int qp,
+                                          int wp_first, int wp_last,
+                                          int lane) {
+  const float scale = LOG2E / 8.f;  // log2(e) / sqrt(64)
+  const bool whole = kt + 128 <= sh.Skv &&
+                     (!sh.causal || kt + 127 <= wp_first) &&
+                     (sh.window <= 0 || wp_last - kt < sh.window);
+  if (!whole) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = kt + 8 * n + 2 * (lane % 4) + (e & 1);
+        const int q = qp + ((e & 2) ? 8 : 0);
+        const bool ok = kp < sh.Skv && (!sh.causal || kp <= q) &&
+                        (sh.window <= 0 || q - kp < sh.window);
+        if (!ok) s[4 * n + e] = -INFINITY;
+      }
+  }
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  const float mn_lo = fmaxf(st.m_lo, quad_max(mx_lo) * scale);
+  const float mn_hi = fmaxf(st.m_hi, quad_max(mx_hi) * scale);
+  // a running max of -inf: nothing seen yet, alpha 0 and p 0
+  const float mu_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+  const float mu_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+  st.al_lo = ex2(st.m_lo - mu_lo);
+  st.al_hi = ex2(st.m_hi - mu_hi);
+  st.m_lo = mn_lo;
+  st.m_hi = mn_hi;
+  float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fmaf(s[4 * n + e], scale, (e & 2) ? -mu_hi : -mu_lo);
+      s[4 * n + e] = ex2(x);
+    }
+    ps_lo += s[4 * n] + s[4 * n + 1];
+    ps_hi += s[4 * n + 2] + s[4 * n + 3];
+  }
+  st.l_lo = st.l_lo * st.al_lo + ps_lo;
+  st.l_hi = st.l_hi * st.al_hi + ps_hi;
+}
+
+// once P V of the tile before has completed: O rescaled, and P packed
+// from s into the A fragment of the next P V (its k-step kk is s's
+// columns 16 kk .. 16 kk + 15: registers 8 kk .. 8 kk + 7, in pairs)
+template <typename T>
+__device__ __forceinline__ void rescale_pack64(const float (&s)[64],
+                                               float (&o)[32],
+                                               uint32_t (&pa)[8][4],
+                                               Rows64& st) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) o[k] *= (k & 2) ? st.al_hi : st.al_lo;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kk][j] = pack2<T>(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// P V of the tile at v_addr issued and waited for, its stage released
+template <bool BF16>
+__device__ __forceinline__ void flush64(float (&o)[32], uint32_t (&pa)[8][4],
+                                        uint32_t v_addr, uint32_t bar_empty,
+                                        int lane) {
+  keep(o);
+  keep(pa);
+  wgmma_fence();
+  pv64<BF16>(o, pa, v_addr);
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep(o);
+  keep(pa);
+  release64(bar_empty, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Layout64::THREADS, 1)
+flash_tc64_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  T* __restrict__ out, const Shape sh) {
+  using L = Layout64;
+  constexpr int BN = L::BN;
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * L::STAGES;  // + 8 * stage
+
+  // one grid axis over (q-tile, head, batch), the q-tile fastest; causal
+  // blocks take the last tiles first, and a split last tile (a third of
+  // a band's work on each warpgroup) goes after every whole one
+  const int nq = (sh.Sq + L::BM - 1) / L::BM;
+  const int tail = !sh.causal && nq > 1 && sh.Sq - (nq - 1) * L::BM <= 64;
+  const int whole_blocks = (nq - tail) * (gridDim.x / nq);
+  int tile, hb;
+  if (static_cast<int>(blockIdx.x) < whole_blocks) {
+    tile = blockIdx.x % (nq - tail);
+    hb = blockIdx.x / (nq - tail);
+  } else {
+    tile = nq - 1;
+    hb = blockIdx.x - whole_blocks;
+  }
+  if (sh.causal) tile = nq - 1 - tile;
+  const int q0 = tile * L::BM;
+  const int h = hb % sh.Hq, b = hb / sh.Hq;
+  const int hk = h / sh.G;
+  // the warpgroups with rows below Sq, a prefix of them
+  const int rows_wg = min(L::WGS, (sh.Sq - q0 + 63) / 64);
+
+  // the kv tiles this block's rows can see
+  const int p_first = q0 + sh.offset;
+  const int p_last = min(q0 + L::BM, sh.Sq) - 1 + sh.offset;
+  const int k_end = sh.causal ? min(sh.Skv, p_last + 1) : sh.Skv;
+  const int k_begin = sh.window > 0 ? max(0, p_first - (sh.window - 1)) : 0;
+  const int t_begin = k_begin / BN;
+  const int ntiles = k_end > k_begin ? (k_end + BN - 1) / BN - t_begin : 0;
+  // a split block: every warpgroup on the first warpgroup's rows
+  const bool split = rows_wg == 1 && ntiles > 1;
+  const int nwg = split ? L::WGS : rows_wg;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      // one arrive a consumer warp that uses the tile
+      mbar_init(bar_empty + 8 * s, split ? 4 : 4 * nwg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * L::WGS) {
+    // producer: the Q tile once, then the K/V ring
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (warp == 4 * L::WGS && lane == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      tma_load_4d(base, &tq, 0, h, q0, b, bar_q);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % L::STAGES;
+        if (i >= L::STAGES)  // the consumers released this stage's last use
+          mbar_wait(bar_empty + 8 * s, ((i / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_BYTES);
+        const int kt = (t_begin + i) * BN;
+        tma_load_4d(base + L::K_OFF + s * L::KV_BYTES, &tk, 0, hk, kt, b,
+                    bar_full + 8 * s);
+        tma_load_4d(base + L::V_OFF + s * L::KV_BYTES, &tv, 0, hk, kt, b,
+                    bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<L::CONSUMER_REGS>();
+  const int wg = warp / 4;
+  if (wg >= nwg) return;
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63 (split: q0 .. + 63);
+  // this thread holds rows r and r + 8 of them, columns 8 n + 2 (lane %
+  // 4) + e
+  const int r = (warp % 4) * 16 + lane / 4;
+  const int row0 = q0 + (split ? 0 : wg * 64);
+  const int qp = row0 + r + sh.offset;
+  const int wp_first = row0 + sh.offset;
+  const int wp_last = min(row0 + 64, sh.Sq) - 1 + sh.offset;
+  const uint32_t q_addr = base + (row0 - q0) * 128;
+  const uint32_t k_ring = base + L::K_OFF, v_ring = base + L::V_OFF;
+
+  // one turn a kv tile, or in a split block a round of one tile each;
+  // the last warpgroup hands the first its first turn and skips its own
+  // last hand-on, so every barrier ends complete
+  const int rounds = split ? (ntiles + L::WGS - 1) / L::WGS : ntiles;
+  const bool turns = nwg > 1;
+  const int bar_mine = L::TURN + wg;
+  const int bar_next = L::TURN + (wg + 1 < nwg ? wg + 1 : 0);
+  if (turns && wg == nwg - 1 && rounds > 0) named_bar_arrive(L::TURN, 256);
+  // whether this warpgroup hands the turn on after round k
+#define HAND_ON(k) \
+  if (turns && (wg != nwg - 1 || (k) != rounds - 1)) \
+  named_bar_arrive(bar_next, 256)
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  Rows64 st{-INFINITY, -INFINITY, 0.f, 0.f, 0.f, 0.f};
+  float sc[64];
+  uint32_t pa[8][4] = {};
+  mbar_wait(bar_q, 0);
+
+  if (!split && ntiles > 0) {
+    // every warpgroup computes every tile of the block's band (the masks
+    // zero what its rows cannot see).  Tile 0: S alone
+    mbar_wait(bar_full, 0);
+    if (turns) named_bar_sync(bar_mine, 256);
+    wgmma_fence();
+    qk64<BF16>(sc, q_addr, k_ring);
+    wgmma_commit();
+    HAND_ON(0);
+    wgmma_wait<0>();
+    keep(sc);
+    softmax64(sc, st, sh, t_begin * L::BN, qp, wp_first, wp_last, lane);
+    rescale_pack64<T>(sc, o, pa, st);
+    // tile j: S of tile j and P V of tile j - 1 in one turn; the softmax
+    // runs while P V does
+    for (int j = 1; j < ntiles; ++j) {
+      const int s = j % L::STAGES, h_ = (j - 1) % L::STAGES;
+      mbar_wait(bar_full + 8 * s, (j / L::STAGES) & 1);
+      if (turns) named_bar_sync(bar_mine, 256);
+      keep(o);
+      keep(pa);
+      wgmma_fence();
+      qk64<BF16>(sc, q_addr, k_ring + s * L::KV_BYTES);
+      wgmma_commit();
+      pv64<BF16>(o, pa, v_ring + h_ * L::KV_BYTES);
+      wgmma_commit();
+      HAND_ON(j);
+      wgmma_wait<1>();  // S has completed; P V may still run
+      keep(sc);
+      softmax64(sc, st, sh, (t_begin + j) * L::BN, qp, wp_first, wp_last,
+                lane);
+      wgmma_wait<0>();  // P V has completed: O and P are free
+      keep(o);
+      keep(pa);
+      release64(bar_empty + 8 * h_, lane);
+      rescale_pack64<T>(sc, o, pa, st);
+    }
+    const int s = (ntiles - 1) % L::STAGES;
+    flush64<BF16>(o, pa, v_ring + s * L::KV_BYTES, bar_empty + 8 * s, lane);
+  }
+  if (split) {
+    // this warpgroup's tiles wg, wg + WGS, ..., one at a time, a turn
+    // each; then the turns of the rounds it has no tile in
+    int round = 0;
+    for (int j = wg; j < ntiles; j += L::WGS, ++round) {
+      const int s = j % L::STAGES;
+      mbar_wait(bar_full + 8 * s, (j / L::STAGES) & 1);
+      if (turns) named_bar_sync(bar_mine, 256);
+      keep(o);
+      keep(pa);
+      wgmma_fence();
+      qk64<BF16>(sc, q_addr, k_ring + s * L::KV_BYTES);
+      wgmma_commit();
+      HAND_ON(round);
+      wgmma_wait<0>();
+      keep(sc);
+      softmax64(sc, st, sh, (t_begin + j) * L::BN, qp, wp_first, wp_last,
+                lane);
+      rescale_pack64<T>(sc, o, pa, st);
+      flush64<BF16>(o, pa, v_ring + s * L::KV_BYTES, bar_empty + 8 * s, lane);
+    }
+    for (; round < rounds; ++round) {
+      if (turns) named_bar_sync(bar_mine, 256);
+      HAND_ON(round);
+    }
+  }
+
+#undef HAND_ON
+  if (split) {
+    // every product has completed and every tile was waited for by its
+    // warpgroup, so the ring is free: warpgroups 1 .. WGS-1 leave their m,
+    // l and O there, and warpgroup 0 merges them into its own
+    float* part = reinterpret_cast<float*>(sm + L::K_OFF) + threadIdx.x % 128;
+    named_bar_sync(L::MERGE, 128 * L::WGS);
+    if (wg > 0) {
+      float* mine = part + (wg - 1) * L::PART;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) mine[k * 128] = o[k];
+      mine[32 * 128] = st.m_lo;
+      mine[33 * 128] = st.m_hi;
+      mine[34 * 128] = st.l_lo;
+      mine[35 * 128] = st.l_hi;
+    }
+    named_bar_sync(L::MERGE, 128 * L::WGS);
+    if (wg > 0) return;
+    float mx_lo = st.m_lo, mx_hi = st.m_hi;
+    for (int w = 1; w < L::WGS; ++w) {
+      mx_lo = fmaxf(mx_lo, part[(w - 1) * L::PART + 32 * 128]);
+      mx_hi = fmaxf(mx_hi, part[(w - 1) * L::PART + 33 * 128]);
+    }
+    const float mu_lo = mx_lo == -INFINITY ? 0.f : mx_lo;
+    const float mu_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
+    const float a_lo = ex2(st.m_lo - mu_lo), a_hi = ex2(st.m_hi - mu_hi);
+    st.l_lo *= a_lo;
+    st.l_hi *= a_hi;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) o[k] *= (k & 2) ? a_hi : a_lo;
+    for (int w = 1; w < L::WGS; ++w) {
+      const float* theirs = part + (w - 1) * L::PART;
+      const float f_lo = ex2(theirs[32 * 128] - mu_lo);
+      const float f_hi = ex2(theirs[33 * 128] - mu_hi);
+      st.l_lo += theirs[34 * 128] * f_lo;
+      st.l_hi += theirs[35 * 128] * f_hi;
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        o[k] += theirs[k * 128] * ((k & 2) ? f_hi : f_lo);
+    }
+  }
+
+  const float inv_lo = 1.f / fmaxf(quad_sum(st.l_lo), 1e-30f);
+  const float inv_hi = 1.f / fmaxf(quad_sum(st.l_hi), 1e-30f);
+  // stage through padded shared memory, store 16 bytes a thread
+  T* stage = reinterpret_cast<T*>(sm + L::O_OFF) + wg * 64 * L::O_LD;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(stage + r * L::O_LD + col) =
+        pack2<T>(o[4 * n] * inv_lo, o[4 * n + 1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(stage + (r + 8) * L::O_LD + col) =
+        pack2<T>(o[4 * n + 2] * inv_hi, o[4 * n + 3] * inv_hi);
+  }
+  named_bar_sync(1 + wg, 128);
+  for (int c = threadIdx.x % 128; c < 64 * 8; c += 128) {
+    const int rr = c / 8, j = c % 8;
+    const int qrow = row0 + rr;
+    if (qrow < sh.Sq)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<int64_t>(b) * sh.Sq + qrow) * sh.Hq + h) * 64 +
+          j * 8) = *reinterpret_cast<const uint4*>(stage + rr * L::O_LD +
+                                                   j * 8);
+  }
+}
+
 // -- host side ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -714,21 +1183,13 @@ bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out,
-              int64_t B, int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv,
-              int64_t causal, int64_t window, int64_t offset,
-              cudaStream_t stream) {
-  using L = Layout<HD>;
-  const CUtensorMapDataType type =
-      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  CUtensorMap tq, tk, tv, to{};  // `to` only for the wide layout's stores
-  if (!make_map(&tq, q, type, B, Sq, Hq, HD, BM) ||
-      !make_map(&tk, k, type, B, Skv, Hkv, HD, L::BN) ||
-      !make_map(&tv, v, type, B, Skv, Hkv, HD, L::BN) ||
-      (L::WIDE && !make_map(&to, out, type, B, Sq, Hq, HD, OUT_ROWS)))
-    return static_cast<int>(cudaErrorInvalidValue);
+CUtensorMapDataType map_type(bool bf16) {
+  return bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+Shape make_shape(int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv,
+                 int64_t causal, int64_t window, int64_t offset) {
   Shape sh;
   sh.Sq = static_cast<int>(Sq);
   sh.Skv = static_cast<int>(Skv);
@@ -737,6 +1198,23 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
   sh.causal = causal ? 1 : 0;
   sh.window = static_cast<int>(window);
   sh.offset = static_cast<int>(offset);
+  return sh;
+}
+
+template <typename T, int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              int64_t B, int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv,
+              int64_t causal, int64_t window, int64_t offset,
+              cudaStream_t stream) {
+  using L = Layout<HD>;
+  const CUtensorMapDataType type =
+      map_type(std::is_same<T, __nv_bfloat16>::value);
+  CUtensorMap tq, tk, tv, to{};  // `to` only for the wide layout's stores
+  if (!make_map(&tq, q, type, B, Sq, Hq, HD, BM) ||
+      !make_map(&tk, k, type, B, Skv, Hkv, HD, L::BN) ||
+      !make_map(&tv, v, type, B, Skv, Hkv, HD, L::BN) ||
+      (L::WIDE && !make_map(&to, out, type, B, Sq, Hq, HD, OUT_ROWS)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaFuncSetAttribute(
       flash_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::ALLOC);
@@ -744,7 +1222,34 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(Hq), static_cast<unsigned>(B),
                   static_cast<unsigned>((Sq + BM - 1) / BM));
   flash_tc_kernel<T, HD><<<grid, L::THREADS, L::ALLOC, stream>>>(
-      tq, tk, tv, to, static_cast<T*>(out), sh);
+      tq, tk, tv, to, static_cast<T*>(out),
+      make_shape(Sq, Skv, Hq, Hkv, causal, window, offset));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hd 64: one grid axis over (q-tiles, heads, batch)
+template <typename T>
+int launch_hd64(const void* q, const void* k, const void* v, void* out,
+                int64_t B, int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv,
+                int64_t causal, int64_t window, int64_t offset,
+                cudaStream_t stream) {
+  using L = Layout64;
+  const CUtensorMapDataType type =
+      map_type(std::is_same<T, __nv_bfloat16>::value);
+  CUtensorMap tq, tk, tv;
+  const int64_t blocks = (Sq + L::BM - 1) / L::BM * Hq * B;
+  if (blocks > 2147483647 || !make_map(&tq, q, type, B, Sq, Hq, 64, L::BM) ||
+      !make_map(&tk, k, type, B, Skv, Hkv, 64, L::BN) ||
+      !make_map(&tv, v, type, B, Skv, Hkv, 64, L::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaFuncSetAttribute(
+      flash_tc64_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::ALLOC);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  flash_tc64_kernel<T><<<static_cast<unsigned>(blocks), L::THREADS, L::ALLOC,
+                         stream>>>(
+      tq, tk, tv, static_cast<T*>(out),
+      make_shape(Sq, Skv, Hq, Hkv, causal, window, offset));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -761,8 +1266,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
-                            window, offset, st);
+    return launch_hd64<T>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,
+                          offset, st);
   if (hd == 96)
     return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
                             window, offset, st);

@@ -10,7 +10,9 @@ one function.  ``_route`` picks one from the dtype and the head dim:
   block (at 96, phi-3-vision-4.2b's, hd 128's tiles with the columns past
   96 zero-filled by TMA; at 256, recurrentgemma-9b's local attention,
   64-key tiles and a producer warpgroup that hands its registers to the
-  consumers);
+  consumers; at 64, whisper-tiny's, a kernel of its own with 192
+  positions per block, three consumer warpgroups that take turns at the
+  tensor cores, and each one's P V in flight through its next softmax);
 * ``"simt"`` (``csrc/flash_attention.cu``): float32 at every head dim,
   and 16-bit inputs at the other head dims up to 256, as float32 FMAs on
   the CUDA cores — one block per (batch, kv-head, q-tile) with every
@@ -189,8 +191,18 @@ def launch_route(route: str, q: torch.Tensor, k: torch.Tensor,
 
 
 # tiles of the two kernels (csrc/flash_attention_tc.cu, flash_attention.cu)
-WGMMA_BM, WGMMA_WG_ROWS = 128, 64     # query rows a block, a warpgroup
+WGMMA_WG_ROWS = 64                    # query rows a warpgroup
 SIMT_ROWS, SIMT_BK = 64, 32           # rows a block (G heads x 64/G), keys
+
+
+def wgmma_tiles(hd: int) -> tuple[int, int]:
+    """(query rows a block, keys a kv tile) of the ``wgmma`` kernel at
+    head dim ``hd``: 192 and 128 at hd 64 (three warpgroups), 128 and 64
+    at hd 256, 128 and 128 at 96 and 128.  Must match ``Layout64`` and
+    ``Layout<HD>`` in ``csrc/flash_attention_tc.cu``."""
+    if hd == 64:
+        return 192, 128
+    return 128, 64 if hd > 128 else 128
 
 
 @functools.lru_cache(maxsize=4096)
@@ -198,23 +210,27 @@ def visited_pairs(route: str, Sq: int, Skv: int, G: int, hd: int,
                   causal: bool, window: int, offset: int) -> int:
     """(query row, key) pairs one kv head's group of ``G`` query heads
     computes on ``route``: whole tiles, as the kernel visits them.  The
-    ``wgmma`` kernel loads the kv tiles of a 128-row block's band (128
-    keys, 64 at hd 256) and each 64-row warpgroup skips a tile none of its
-    rows sees; the ``simt`` kernel walks 32-key tiles over the band of a
-    block of ``64 / G`` positions times the ``G`` heads."""
+    ``wgmma`` kernel loads the kv tiles of a block's band (``wgmma_tiles``)
+    and each 64-row warpgroup with rows below ``Sq`` computes them: every
+    one at hd 64, and elsewhere all but the tiles none of its rows sees;
+    the ``simt`` kernel walks 32-key tiles over the band of a block of
+    ``64 / G`` positions times the ``G`` heads."""
     def band(p_first, p_last):
         hi = min(Skv, p_last + 1) if causal else Skv
         lo = max(0, p_first - (window - 1)) if window > 0 else 0
         return lo, hi
     total = 0
     if route == "wgmma":
-        bn = 64 if hd > 128 else 128
-        for q0 in range(0, Sq, WGMMA_BM):
-            lo, hi = band(q0 + offset, min(q0 + WGMMA_BM, Sq) - 1 + offset)
+        bm, bn = wgmma_tiles(hd)
+        for q0 in range(0, Sq, bm):
+            lo, hi = band(q0 + offset, min(q0 + bm, Sq) - 1 + offset)
             if hi <= lo:
                 continue
             t0, t1 = lo // bn, (hi - 1) // bn
-            for w0 in range(q0, min(q0 + WGMMA_BM, Sq), WGMMA_WG_ROWS):
+            for w0 in range(q0, min(q0 + bm, Sq), WGMMA_WG_ROWS):
+                if hd == 64:
+                    total += (t1 - t0 + 1) * WGMMA_WG_ROWS * bn
+                    continue
                 wlo, whi = band(w0 + offset,
                                 min(w0 + WGMMA_WG_ROWS, Sq) - 1 + offset)
                 if whi <= wlo:

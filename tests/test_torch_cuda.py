@@ -621,6 +621,16 @@ def flash_inputs(cuda, dtype, salt, B, Sq, Skv, Hq, Hkv, hd):
     (1, 1, 1, 8, 1, 96), (1, 63, 63, 4, 4, 96), (1, 64, 64, 8, 8, 96),
     (2, 65, 65, 4, 1, 96), (1, 129, 129, 8, 1, 96), (1, 1, 129, 4, 1, 96),
     (1, 129, 63, 8, 8, 96), (1, 2049, 2049, 8, 1, 96),
+    # the hd-64 kernel's edges in 16 bits (192-row blocks of three
+    # warpgroups, 128-key tiles): Sq and Skv of 1, 63, 64, 65, 191, 192,
+    # 193, 432 and 1500 (whisper-tiny's prompt and frames), Sq > Skv,
+    # groups of 1, 4 and 8; rows that fit one warpgroup over many kv
+    # tiles (48 -> 1500, and 432's last tile) split the tiles
+    (1, 1, 1, 8, 1, 64), (2, 64, 64, 4, 4, 64), (1, 191, 191, 8, 8, 64),
+    (2, 192, 192, 6, 6, 64), (1, 193, 193, 4, 1, 64),
+    (1, 193, 65, 8, 1, 64), (1, 65, 193, 8, 8, 64),
+    (2, 432, 1500, 6, 6, 64), (1, 1500, 1500, 6, 6, 64),
+    (1, 1500, 432, 4, 1, 64), (1, 48, 1500, 8, 1, 64),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
                                            (False, 0)])
@@ -686,12 +696,13 @@ def test_cuda_fused_attention_mha_equals_plain(cuda, B, Sq, Skv, H, hd,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Hkv,hd", [(8, 2, 128), (16, 1, 256),
-                                       (32, 32, 96)])
+                                       (32, 32, 96), (6, 6, 64),
+                                       (8, 2, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_cuda_flash_attention_wgmma_deterministic(cuda, dtype, Hq, Hkv, hd):
     """The tensor-core route sums in a fixed order (no atomics): two calls
     on the same inputs give bitwise-equal outputs, at hd 128 and on the
-    hd-256 and hd-96 tiles."""
+    hd-256, hd-96 and hd-64 tiles."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
     q, k, v = flash_inputs(cuda, dtype, "cdet", 2, 300, 300, Hq, Hkv, hd)

@@ -213,8 +213,10 @@ def _triangular_steps(S, qc, kc):
 def _brute_pairs(route, Sq, Skv, G, hd, causal, window, offset):
     """(row, key) pairs a kernel computes, by brute force over the mask:
     whole tiles with any visible pair (``wgmma``: a 64-row warpgroup's
-    128-key tiles, 64 at hd 256, for each of the ``G`` heads; ``simt``: a
-    block of ``64 / G`` positions x ``G`` heads against 32-key tiles)."""
+    128-key tiles, 64 at hd 256, for each of the ``G`` heads; at hd 64
+    each warpgroup with rows computes every tile its 192-row block's rows
+    see; ``simt``: a block of ``64 / G`` positions x ``G`` heads against
+    32-key tiles)."""
     q = np.arange(Sq)[:, None] + offset
     k = np.arange(Skv)[None, :]
     vis = np.ones((Sq, Skv), bool)
@@ -224,12 +226,15 @@ def _brute_pairs(route, Sq, Skv, G, hd, causal, window, offset):
         vis &= q - k < window
     if route == "wgmma":
         rows, bn, per = 64, (64 if hd > 128 else 128), G
+        block = 192 if hd == 64 else rows
     else:
         rows, bn, per = 64 // G, 32, 1
+        block = rows
     total = 0
     for r0 in range(0, Sq, rows):
+        b0 = r0 - r0 % block   # the tiles the warpgroup's block sees
         for t0 in range(0, Skv, bn):
-            if vis[r0:r0 + rows, t0:t0 + bn].any():
+            if vis[b0:b0 + block, t0:t0 + bn].any():
                 total += 64 * bn * per   # 64 rows a warpgroup, a block
     return total
 
@@ -601,16 +606,24 @@ def test_kernel_fake_path(name):
         fn(*[torch.empty(s, dtype=d, device="meta") for s, d in spec])
 
 
-def test_visited_pairs_match_brute_force():
-    for route, hd in (("wgmma", 128), ("wgmma", 256), ("simt", 64)):
-        for Sq, Skv, G, causal, window in ((300, 300, 4, True, 100),
-                                           (77, 200, 1, True, 0),
-                                           (256, 256, 8, False, 0),
-                                           (1000, 1000, 2, True, 300)):
-            got = FA.visited_pairs(route, Sq, Skv, G, hd, causal, window,
-                                   Skv - Sq)
-            assert got == _brute_pairs(route, Sq, Skv, G, hd, causal,
-                                       window, Skv - Sq)
+# (Sq, Skv, G, causal, window): ragged lengths, windows, groups; then
+# whisper-tiny's encoder (1500 x 1500) and cross-attention (432 -> 1500),
+# non-causal over one head of a group of 1
+_PAIR_SHAPES = [(300, 300, 4, True, 100), (77, 200, 1, True, 0),
+                (256, 256, 8, False, 0), (1000, 1000, 2, True, 300)]
+_WHISPER_SHAPES = [(1500, 1500, 1, False, 0), (432, 1500, 1, False, 0)]
+
+
+@pytest.mark.parametrize("route,hd,Sq,Skv,G,causal,window", [
+    (route, hd, *shape) for route, hd in (("wgmma", 128), ("wgmma", 256),
+                                          ("simt", 64), ("wgmma", 64))
+    for shape in _PAIR_SHAPES] + [
+    ("wgmma", 64, *shape) for shape in _WHISPER_SHAPES])
+def test_visited_pairs_match_brute_force(route, hd, Sq, Skv, G, causal,
+                                         window):
+    got = FA.visited_pairs(route, Sq, Skv, G, hd, causal, window, Skv - Sq)
+    assert got == _brute_pairs(route, Sq, Skv, G, hd, causal, window,
+                               Skv - Sq)
 
 
 # -- ROADMAP C4 -------------------------------------------------------------------

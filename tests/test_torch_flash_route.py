@@ -13,9 +13,10 @@ The tensor-core route rounds each tile's probabilities P to the inputs'
 16-bit type before P V, as any tensor-core flash attention does.  The
 last tests write that rounding into a tile loop of their own (no knob on
 the port) and hold it against ``flash_attention_plain`` at yi-6b's head
-dim and prompt length, at phi-3-vision-4.2b's head dim 96, and at
-recurrentgemma-9b's head dim and window with its 64-key tiles, with
-reduced head counts, within the tolerances
+dim and prompt length, at phi-3-vision-4.2b's head dim 96, at
+whisper-tiny's head dim 64 and heads, and at recurrentgemma-9b's head
+dim and window with its 64-key tiles, with reduced head counts, within
+the tolerances
 the card's tests use (``tests/test_torch_cuda.py::FLASH_TOL``): any
 design that rounds P this way can meet them.  The plain version is held
 against the reference Pallas kernel by ``test_torch_lm_kernels.py``; the
@@ -141,9 +142,10 @@ def p_rounded(q, k, v, *, causal, window, bn=128):
 
 
 # (salt, Hq, Hkv, hd): yi-6b's head dim with one kv head of four query
-# heads, and phi-3-vision-4.2b's head dim 96 in its head layout (a group
-# of 1) with two heads
-P_ROUND_HEADS = {"": ("pround", 4, 1, 128), "-hd96": ("pround96", 2, 2, 96)}
+# heads, phi-3-vision-4.2b's head dim 96 in its head layout (a group of
+# 1) with two heads, and whisper-tiny's head dim 64 with its 6/6 heads
+P_ROUND_HEADS = {"": ("pround", 4, 1, 128), "-hd96": ("pround96", 2, 2, 96),
+                 "-hd64": ("pround64", 6, 6, 64)}
 
 
 @pytest.mark.parametrize("causal,window,heads", [
@@ -152,9 +154,10 @@ P_ROUND_HEADS = {"": ("pround", 4, 1, 128), "-hd96": ("pround96", 2, 2, 96)}
 @pytest.mark.parametrize("dtype", HALF, ids=str)
 def test_p_rounding_stays_within_the_card_tolerance(dtype, causal, window,
                                                     heads):
-    """S = 2048 (as yi's and phi-3-vision's prefill) on the tensor-core
-    route's 128-key tiles, at each row of P_ROUND_HEADS: P rounded to 16
-    bits stays within FLASH_TOL."""
+    """S = 2048 (as yi's and phi-3-vision's prefill, past whisper's 1500
+    frames) on the tensor-core route's 128-key tiles (its tile at hd 64,
+    96 and 128), at each row of P_ROUND_HEADS: P rounded to 16 bits stays
+    within FLASH_TOL."""
     salt, Hq, Hkv, hd = P_ROUND_HEADS[heads]
     q, k, v = inputs((salt, causal, window), dtype, 1, 2048, 2048, Hq, Hkv,
                      hd)
